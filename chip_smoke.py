@@ -13,17 +13,33 @@ Phases, one JSON line each:
            element at rtol = atol = 2e-2 (bf16) on the rows that see a
            key, extract_pack exactly: max abs error, finiteness, median
            kernel ms, plain ms, and the ms of one PyTorch library call
-           computing the same function.
+           computing the same function.  The paged kernels (page 16,
+           shuffled tables, lanes 0-3 sharing their first 8 pages) are
+           also held bit for bit (torch.equal) against the dense kernel
+           on the gathered view; their library yardstick is two calls,
+           the pool[tbl] gather and scaled_dot_product_attention.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
-           streams, and the card's prefill logits agree with the CPU's.
+           streams, dense and paged (page 16), and the card's prefill
+           logits agree with the CPU's.
   serve    glm4-9b at full width and depth, random bf16 weights from a
            seeded generator: ServingEngine (batch 8, max_len 1024,
            gamma 3, K=8, greedy, no drafter) serves 16 requests (prompts
-           64-512, 64 new tokens) with serve_stream.  Every kernel's
-           launch count is zeroed just before and read just after.
-  profile  torch.profiler over a short serve on the same engine: device
-           busy share and device time by kernel class.
+           64-512, 64 new tokens; requests 1, 3, 5 and 7 share one
+           prompt) with serve_stream.  Every kernel's launch count is
+           zeroed just before and read just after.
+  paged_serve  the same engine configuration with page_size 16 on the
+           same weights and requests, twice: with the dense footprint of
+           512 pages (no admission can defer, so the schedule is the
+           dense serve's: streams, supersteps and host syncs must equal
+           it exactly, prefix hits > 0), then with 256 pages (the
+           admission guard defers; every request must finish, the peak
+           must stay within the pool, every paged kernel must launch).
+           The allocator is clean at drain in both.
+  profile  torch.profiler over a short serve on the dense and the paged
+           engine: device busy share, device time by kernel class, and
+           the host-blocking CUDA calls (synchronizations, pageable
+           host-to-device copies) of each; the paged serve adds none.
 
 Then the kernel table (``{"kernels": [...]}``), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -49,7 +65,8 @@ BF16_TOL = 2e-2                  # per element, as tests/test_kernels.py
 # whole tensor: set from readings on an H100 (at most 2.9e-5 at the
 # shapes below), so a systematic error above 0.1 % fails
 REL_L2_TOL = 1e-3
-GLM = dict(B=8, S=512, SMAX=1024, HQ=32, HK=2, D=128, F=3 * 4096, GAMMA=3)
+GLM = dict(B=8, S=512, SMAX=1024, HQ=32, HK=2, D=128, F=3 * 4096, GAMMA=3,
+           P=16)
 
 
 def emit(obj):
@@ -220,6 +237,107 @@ def phase_kernels():
         shape=f"T=4 q {(B, 4, HQ, D)} cache {tuple(kc.shape)} bf16",
         cases=cases))
 
+    # ---- paged kernels: pools of B * 64 pages + trash at P 16; each lane's
+    # table a shuffled page list, lanes 0-3 sharing their first 8 pages
+    from repro_torch.core.paging import gather_view
+    from repro_torch.kernels.flash_attn.ops import flash_attention_paged
+    from repro_torch.kernels.flash_attn.ref import flash_attention_paged_ref
+    from repro_torch.kernels.verify_attn.ops import verify_attention_paged
+    from repro_torch.kernels.verify_attn.ref import verify_attention_paged_ref
+    P = GLM["P"]
+    n_tbl = SMAX // P
+    n_pages = B * n_tbl
+    kpool, vpool = rnd(n_pages + 1, P, HK, D), rnd(n_pages + 1, P, HK, D)
+    full = torch.randperm(n_pages, generator=g, device=dev).to(
+        torch.int32).reshape(B, n_tbl)
+    full[1:4, :8] = full[0, :8]
+
+    def table(need):
+        """Rows of ``full`` with entries past need[b] pages on trash."""
+        col = torch.arange(n_tbl, device=dev)[None, :]
+        return torch.where(col < need[:, None], full,
+                           torch.full_like(full, n_pages)).contiguous()
+
+    pcases = []
+    for t, lengths in ((4, [600, 517, 812, 1000, 64, 256, 700, 333]),
+                       (1, [600, 517, 812, 1000, 64, 256, 700, 333]),
+                       (511, [0] * B)):
+        qt = rnd(B, t, HQ, D)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        pd = torch.minimum(pad, ln) if t < 511 else pad
+        need = torch.clamp(-(-(ln + t) // P), max=n_tbl)
+        tb = table(need)
+        kv_k, kv_v = gather_view(kpool, tb), gather_view(vpool, tb)
+        o = verify_attention_paged(qt, kpool, vpool, tb, ln, pd)
+        r = verify_attention_paged_ref(qt, kpool, vpool, tb, ln, pd)
+        dense = verify_attention(qt, kv_k, kv_v, ln, pd)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o).all(), "verify_attention_paged non-finite"
+        assert torch.equal(o, dense), \
+            f"verify_attention_paged T={t} != dense kernel on the view"
+        qpos = ln[:, None] + torch.arange(t, device=dev)[None, :]
+        live = qpos >= pd[:, None]
+        e, rel_t = hold(o[live], r[live], f"verify_attention_paged T={t}")
+        nvis = (torch.clamp(torch.clamp(qpos, max=SMAX - 1) - pd[:, None] + 1,
+                            min=0)).sum().item() * HQ
+        span = (torch.clamp(ln + t, max=SMAX) - pd).clamp(min=0).sum().item()
+        pages = (need - pd // P).clamp(min=0).sum().item()
+        nbytes = (2 * 2 * qt.numel() + 2 * 2 * span * HK * D + 4 * pages
+                  + 8 * B)
+        vmask = verify_mask(ln, t, SMAX, pd)
+        b_ms, b_by = bound(nbytes, 4.0 * nvis * D)
+        pcases.append(dict(
+            T=t, max_abs_err=e, rel_l2_err=rel_t, equal_dense=True,
+            ms=cuda_ms(lambda: verify_attention_paged(qt, kpool, vpool, tb,
+                                                      ln, pd)),
+            plain_ms=cuda_ms(lambda: verify_attention_paged_ref(
+                qt, kpool, vpool, tb, ln, pd), iters=5),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: _sdpa(qt, gather_view(kpool, tb),
+                                             gather_view(vpool, tb), vmask))))
+    head = pcases[0]
+    rows.append(dict(
+        name="verify_attention_paged", route="cuda",
+        source="src/repro_torch/csrc/verify_attn_paged.cu",
+        replaces="src/repro/kernels/verify_attn/kernel.py:157",
+        max_abs_err=max(c["max_abs_err"] for c in pcases),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        library="pool[tbl] gather + scaled_dot_product_attention (2 calls)",
+        shape=f"T=4 q {(B, 4, HQ, D)} pools {tuple(kpool.shape)} "
+              f"tbl {tuple(full.shape)} bf16", cases=pcases))
+
+    need = torch.full((B,), S // P, dtype=torch.int64, device=dev)
+    tb = table(need)
+    o = flash_attention_paged(q, kpool, vpool, tb, pad)
+    r = flash_attention_paged_ref(q, kpool, vpool, tb, pad)
+    kv_k = gather_view(kpool, tb)[:, :S].contiguous()
+    kv_v = gather_view(vpool, tb)[:, :S].contiguous()
+    dense = flash_attention(q, kv_k, kv_v, pad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all(), "flash_attention_paged wrote non-finite"
+    assert torch.equal(o, dense), "flash_attention_paged != dense on the view"
+    err, rel = hold(o[valid], r[valid], "flash_attention_paged")
+    assert not o[~valid].any(), "rows before pad must be zeros"
+    pages = (need - pad // P).sum().item()
+    nbytes = (2 * (2 * q.numel() + 2 * B * S * HK * D) - 2 * 2 * HK * D
+              * pad.sum().item() + 4 * pages + 4 * B)
+    b_ms, b_by = bound(nbytes, 4.0 * vis * D)
+    rows.append(dict(
+        name="flash_attention_paged", route="cuda",
+        source="src/repro_torch/csrc/flash_attn_paged.cu",
+        replaces="src/repro/kernels/flash_attn/kernel.py:115",
+        max_abs_err=err, rel_l2_err=rel, equal_dense=True,
+        ms=cuda_ms(lambda: flash_attention_paged(q, kpool, vpool, tb, pad)),
+        plain_ms=cuda_ms(lambda: flash_attention_paged_ref(
+            q, kpool, vpool, tb, pad), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: _sdpa(
+            q, gather_view(kpool, tb[:, :S // P]),
+            gather_view(vpool, tb[:, :S // P]), mask)),
+        library="pool[tbl] gather + scaled_dot_product_attention (2 calls)",
+        shape=f"q {tuple(q.shape)} pools {tuple(kpool.shape)} bf16, pad>0"))
+
     # ---- extract_pack (exact)
     F_ = GLM["F"]
     T4 = GLM["GAMMA"] + 1
@@ -259,6 +377,7 @@ def phase_ladder():
     from repro_torch.core import eagle
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
     cfg = dataclasses.replace(get("glm4-9b"), num_layers=2)
     dcfg = eagle.draft_config(cfg)
     dev = torch.device("cuda")
@@ -275,6 +394,20 @@ def phase_ladder():
         streams[k] = [list(r.generated) for r in reqs]
         assert all(len(s) == 24 for s in streams[k])
     assert streams[8] == streams[0], "superstep stream != stepwise stream"
+    paged = {}
+    for k in (8, 0):
+        conf = ServingConfig(batch_size=8, max_len=256, gamma=3,
+                             superstep_rounds=k, page_size=GLM["P"])
+        eng = ServingEngine(cfg, params, dcfg, dparams, config=conf,
+                            device=dev)
+        reqs = _requests(np.random.default_rng(3), 8, 16, 128, 24,
+                         cfg.vocab_size)
+        eng.serve_wave(reqs)
+        paged[k] = [list(r.generated) for r in reqs]
+        eng.release_prefix_cache()
+        eng.allocator.assert_clean()
+    assert paged[8] == streams[8], "paged stream != dense stream"
+    assert paged[0] == paged[8], "paged stepwise != paged superstep"
     # the card's prefill against the CPU's (plain kernels) on one prompt
     toks = torch.tensor([np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=48).tolist()], dtype=torch.int32)
@@ -287,33 +420,40 @@ def phase_ladder():
     rel = float((gpu - cpu).norm() / cpu.norm())
     assert rel < 2e-2, f"card vs CPU prefill logits rel err {rel}"
     emit({"phase": "ladder", "layers": 2, "requests": 8, "new_tokens": 24,
-          "streams_equal": True, "prefill_logits_rel_err_vs_cpu": rel,
+          "streams_equal": True, "paged_streams_equal": True,
+          "prefill_logits_rel_err_vs_cpu": rel,
           "argmax_equal": bool(gpu.argmax() == cpu.argmax())})
     del params, dparams
     torch.cuda.empty_cache()
 
 
-def phase_serve():
-    from repro_torch.configs import get
-    from repro_torch.core import eagle
+def _kernel_fns():
     from repro_torch.kernels.extract_pack.ops import pack_signals
-    from repro_torch.kernels.flash_attn.ops import flash_attention
-    from repro_torch.kernels.verify_attn.ops import verify_attention
-    from repro_torch.models import transformer as T
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.core.signals import SignalExtractor, SignalStore
-    cfg = get("glm4-9b")
-    dcfg = eagle.draft_config(cfg)
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    params = T.init(cfg, 0, device=dev)
-    dparams = eagle.draft_init(dcfg, 1, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    store = SignalStore()
-    eng = ServingEngine(cfg, params, dcfg, dparams, batch_size=8,
-                        max_len=1024, gamma=GLM["GAMMA"], superstep_rounds=8,
-                        device=dev, extractor=SignalExtractor(store))
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_paged)
+    from repro_torch.kernels.verify_attn.ops import (verify_attention,
+                                                     verify_attention_paged)
+    return {"flash_attention": flash_attention,
+            "verify_attention": verify_attention,
+            "extract_pack": pack_signals,
+            "verify_attention_paged": verify_attention_paged,
+            "flash_attention_paged": flash_attention_paged}
+
+
+def _serve_requests(vocab):
+    """16 requests, prompts 64-512, 64 new tokens; 1, 3, 5 and 7 (all in
+    the first wave) share one prompt."""
+    reqs = _requests(np.random.default_rng(5), 16, 64, 512, 64, vocab)
+    for i in (3, 5, 7):
+        reqs[i].prompt = list(reqs[1].prompt)
+    return reqs
+
+
+def _timed_serve(eng, reqs):
+    """serve_stream with every kernel's launch count zeroed just before
+    and read just after, and the prefill and superstep ops timed on the
+    host clock around a synchronize.  Returns (summary, launches)."""
+    from repro_torch.core import eagle
     timed = {"prefill": [], "superstep": []}
 
     def timing(name, fn):
@@ -330,39 +470,115 @@ def phase_serve():
 
     eng._prefill = timing("prefill", eng._prefill)
     eng._superstep = timing("superstep", eng._superstep)
-    reqs = _requests(np.random.default_rng(5), 16, 64, 512, 64,
-                     cfg.vocab_size)
+    cfg = eng.cfg
+    fns = _kernel_fns()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (flash_attention, verify_attention, pack_signals):
+    for fn in fns.values():
         fn.launches = 0
     eng.serve_stream(iter(reqs))
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention.launches,
-                "verify_attention": verify_attention.launches,
-                "extract_pack": pack_signals.launches}
+    launches = {name: fn.launches for name, fn in fns.items()}
     assert all(len(r.generated) == 64 and r.finish_t is not None
                for r in reqs), "a request did not finish with its tokens"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
-    assert all(n > 0 for n in launches.values()), launches
     st = eng.stats
-    emit({"phase": "serve", "model": cfg.name, "layers": cfg.num_layers,
-          "params_B": round(cfg.param_count() / 1e9, 3),
-          "draft_params_B": round(eagle.draft_param_count(dcfg) / 1e9, 3),
-          "init_s": round(init_s, 2), "requests": len(reqs),
-          "tokens_out": st.tokens_out, "wall_s": st.wall_s,
-          "tokens_per_s": st.throughput,
-          "prefill_rows_width_ms": timed["prefill"],
-          "superstep_ms_median": statistics.median(timed["superstep"]),
-          "superstep_ms": timed["superstep"],
-          "supersteps": st.dispatches, "rounds": st.steps,
-          "spec_rounds": st.spec_steps,
-          "mean_accept_len": st.accept_len,
-          "host_syncs": eng.host_syncs,
-          "host_syncs_per_superstep": eng.host_syncs / max(st.dispatches, 1),
-          "signal_windows": store.total_added,
-          "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": launches, "nvidia_smi": smi()})
-    return launches, eng
+    summary = {
+        "model": cfg.name, "layers": cfg.num_layers,
+        "params_B": round(cfg.param_count() / 1e9, 3),
+        "draft_params_B": round(eagle.draft_param_count(eng.dcfg) / 1e9, 3),
+        "requests": len(reqs),
+        "tokens_out": st.tokens_out, "wall_s": st.wall_s,
+        "tokens_per_s": st.throughput,
+        "prefill_rows_width_ms": timed["prefill"],
+        "superstep_ms_median": statistics.median(timed["superstep"]),
+        "superstep_ms": timed["superstep"],
+        "supersteps": st.dispatches, "rounds": st.steps,
+        "spec_rounds": st.spec_steps,
+        "mean_accept_len": st.accept_len,
+        "host_syncs": eng.host_syncs,
+        "host_syncs_per_superstep": eng.host_syncs / max(st.dispatches, 1),
+        "signal_windows": eng.extractor.store.total_added,
+        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    return summary, launches
+
+
+def phase_serve():
+    from repro_torch.configs import get
+    from repro_torch.core import eagle
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    cfg = get("glm4-9b")
+    dcfg = eagle.draft_config(cfg)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = T.init(cfg, 0, device=dev)
+    dparams = eagle.draft_init(dcfg, 1, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ServingEngine(cfg, params, dcfg, dparams, batch_size=8,
+                        max_len=1024, gamma=GLM["GAMMA"], superstep_rounds=8,
+                        device=dev, extractor=SignalExtractor(SignalStore()))
+    reqs = _serve_requests(cfg.vocab_size)
+    summary, launches = _timed_serve(eng, reqs)
+    for name in ("flash_attention", "verify_attention", "extract_pack"):
+        assert launches[name] > 0, launches
+    emit({"phase": "serve", **summary, "init_s": round(init_s, 2),
+          "nvidia_smi": smi()})
+    return launches, eng, summary, [list(r.generated) for r in reqs]
+
+
+def phase_paged_serve(dense_eng, dense, dense_streams):
+    """The serve on a paged engine (page 16) with the same weights and
+    requests: first with the dense footprint of pages, where the schedule
+    must be the dense serve's exactly, then with half of it."""
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    out = {}
+    for name, num_pages in (("dense_footprint", 512), ("half", 256)):
+        conf = ServingConfig(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
+                             superstep_rounds=8, page_size=GLM["P"],
+                             num_pages=num_pages)
+        eng = ServingEngine(dense_eng.cfg, dense_eng.params, dense_eng.dcfg,
+                            dense_eng.dparams, config=conf,
+                            device=dense_eng.device,
+                            extractor=SignalExtractor(SignalStore()))
+        reqs = _serve_requests(eng.cfg.vocab_size)
+        summary, launches = _timed_serve(eng, reqs)
+        st = eng.stats
+        streams = [list(r.generated) for r in reqs]
+        assert st.pages_peak <= num_pages
+        assert st.prefix_hits > 0, "the shared prompt was not adopted"
+        eng.release_prefix_cache()
+        eng.allocator.assert_clean()
+        for k in ("verify_attention_paged", "flash_attention_paged",
+                  "verify_attention", "extract_pack"):
+            assert launches[k] > 0, launches
+        assert launches["flash_attention"] == 0, launches
+        if name == "half":
+            assert st.admission_deferrals > 0, "the guard never deferred"
+        if name == "dense_footprint":
+            assert st.admission_deferrals == 0
+            assert streams == dense_streams, "paged streams != dense streams"
+            assert st.dispatches == dense["supersteps"]
+            assert eng.host_syncs == dense["host_syncs"], \
+                (eng.host_syncs, dense["host_syncs"])
+        emit({"phase": "paged_serve", "run": name, "page_size": GLM["P"],
+              "num_pages": num_pages, **summary,
+              "pages_peak": st.pages_peak,
+              "admission_deferrals": st.admission_deferrals,
+              "prefix_hits": st.prefix_hits,
+              "prefix_tokens_saved": st.prefix_tokens_saved,
+              "streams_equal_dense": streams == dense_streams,
+              "requests_equal_dense": sum(
+                  a == b for a, b in zip(streams, dense_streams)),
+              "host_syncs_per_superstep_dense":
+                  dense["host_syncs_per_superstep"],
+              "nvidia_smi": smi()})
+        out[name] = (launches, eng)
+    return out["half"]
 
 
 def _kernel_class(name: str) -> str:
@@ -377,15 +593,22 @@ def _kernel_class(name: str) -> str:
     return "other (elementwise, copies, reductions)"
 
 
-def phase_profile(eng):
+def _blocking(name: str) -> bool:
+    """A CUDA runtime call or copy that makes the host wait."""
+    return "Synchronize" in name or "Pageable" in name
+
+
+def phase_profile(eng, which="dense"):
     """Where a serve's time goes: ``torch.profiler`` over a short stream
-    on the served engine (8 requests, prompt 256, 17 new tokens: one
-    prologue prefill and two supersteps)."""
+    on a served engine (8 requests, prompt 256, 17 new tokens: one
+    prologue prefill and two supersteps), with the count of host-blocking
+    CUDA calls.  Returns that count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reqs = _requests(np.random.default_rng(6), 8, 256, 256, 17,
                      eng.cfg.vocab_size)
     torch.cuda.synchronize()
+    syncs0 = eng.host_syncs
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -408,21 +631,32 @@ def phase_profile(eng):
         c[0] += dev_ms(e)
         c[1] += e.count
     top = sorted(kernels, key=dev_ms, reverse=True)[:10]
-    emit({"phase": "profile", "requests": len(reqs), "wall_ms": wall_ms,
+    blocking = {e.key: e.count for e in prof.key_averages()
+                if _blocking(e.key)}
+    emit({"phase": "profile", "engine": which, "requests": len(reqs),
+          "host_syncs": eng.host_syncs - syncs0, "blocking_calls": blocking,
+          "wall_ms": wall_ms,
           "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
           "classes": {k: {"ms": v[0], "launches": v[1]}
                       for k, v in sorted(classes.items())},
           "top": [{"kernel": e.key[:90], "ms": dev_ms(e), "count": e.count}
                   for e in top]})
+    return blocking
 
 
 def main():
     phase_env()
     rows = phase_kernels()
     phase_ladder()
-    launches, eng = phase_serve()
-    phase_profile(eng)
-    del eng
+    launches, eng, dense, dense_streams = phase_serve()
+    paged_launches, paged_eng = phase_paged_serve(eng, dense, dense_streams)
+    for name in ("verify_attention_paged", "flash_attention_paged"):
+        launches[name] = paged_launches[name]
+    blocking = phase_profile(eng, "dense")
+    blocking_paged = phase_profile(paged_eng, "paged")
+    assert all(n <= blocking.get(k, 0) for k, n in blocking_paged.items()), \
+        f"paged serve blocks the host more: {blocking_paged} vs {blocking}"
+    del eng, paged_eng
     for row in rows:
         row["launches"] = launches[row["name"]]
     emit({"kernels": [{k: row[k] for k in (

@@ -6,9 +6,14 @@ token; during chain drafting the draft's own hidden state stands in for
 the target feature.  The draft shares the target's token embedding.
 
 The draft cache is a dense dict ``{"k", "v": (B, max_len, Hk, D),
-"lengths", "pad"}``.  ``draft_extend`` / ``draft_propose`` write their K/V
-rows into it in place (JAX donates the buffers) and return a new dict
-with the advanced lengths.  Only greedy drafting is ported.
+"lengths", "pad"}``, or a paged one (``init_draft_cache(...,
+page_size=P)``) whose ``k``/``v`` are ``(NP + 1, P, Hk, D)`` page pools
+read and written through its own ``tbl`` copy of the block table.
+``draft_extend`` / ``draft_propose`` write their K/V rows into it in place
+(JAX donates the buffers) and return a new dict with the advanced
+lengths.  Refill seeding runs on a dense R-row staging cache, which
+``scatter_draft_rows_paged`` then writes through the table.  Only greedy
+drafting is ported.
 """
 from __future__ import annotations
 
@@ -81,12 +86,13 @@ def draft_param_count(dcfg: ModelConfig) -> int:
 
 
 # ------------------------------------------------------------ core layer
-def _layer(dcfg: ModelConfig, p, x, k_cache, v_cache, lengths, pad):
+def _layer(dcfg: ModelConfig, p, x, k_cache, v_cache, lengths, pad,
+           page_tbl=None):
     """One decoder layer over new positions (decode form, in-place cache
-    write)."""
+    write; through ``page_tbl`` for a paged draft cache)."""
     h = rmsnorm(p["norm1"], x, dcfg.norm_eps)
     out, _ = attn.self_attention_decode(dcfg, p["attn"], h, k_cache, v_cache,
-                                        lengths, pad)
+                                        lengths, pad, page_tbl=page_tbl)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, dcfg.norm_eps)
     return x + ffn(p["ffn"], h2)
@@ -116,15 +122,27 @@ def _fuse_inputs(dcfg, dparams, feats, tok_emb):
 
 # ------------------------------------------------------------- cache
 def init_draft_cache(dcfg: ModelConfig, batch: int, max_len: int, *,
-                     device) -> dict:
+                     device, page_size: int = 0, num_pages: int = 0) -> dict:
+    """Zeroed draft cache.  With ``page_size > 0`` the K/V leaves are page
+    pools (num_pages + 1, P, Hk, D) with a ``tbl`` (batch, max_len // P)
+    of trash entries: the same layout as the target's pools, with a
+    table copy of its own (JAX donates the two caches separately)."""
     hk, hd = dcfg.num_kv_heads, dcfg.head_dim
     z = dict(dtype=dcfg.act_dtype, device=device)
-    return {
-        "k": torch.zeros((batch, max_len, hk, hd), **z),
-        "v": torch.zeros((batch, max_len, hk, hd), **z),
+    cache = {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
         "pad": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    shape = (batch, max_len, hk, hd)
+    if page_size > 0:
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} % page_size {page_size}")
+        cache["tbl"] = torch.full((batch, max_len // page_size), num_pages,
+                                  dtype=torch.int32, device=device)
+        shape = (num_pages + 1, page_size, hk, hd)
+    cache["k"] = torch.zeros(shape, **z)
+    cache["v"] = torch.zeros(shape, **z)
+    return cache
 
 
 # ------------------------------------------------------- serving functions
@@ -138,7 +156,7 @@ def draft_extend(dcfg: ModelConfig, dparams, embed_params, dcache, feats,
     tok_emb = embed(embed_params, tokens, dcfg.act_dtype)
     x = _fuse_inputs(dcfg, dparams, feats, tok_emb)
     x = _layer(dcfg, dparams, x, dcache["k"], dcache["v"],
-               dcache["lengths"], dcache["pad"])
+               dcache["lengths"], dcache["pad"], dcache.get("tbl"))
     h = rmsnorm(dparams["final_norm"], x, dcfg.norm_eps)
     logits = _head(dcfg, dparams, h)
     new_cache = dict(dcache, lengths=dcache["lengths"] + advance.to(torch.int32))
@@ -162,7 +180,7 @@ def draft_propose(dcfg: ModelConfig, dparams, embed_params, dcache, h_last,
         tok_emb = embed(embed_params, tok[:, None], dcfg.act_dtype)
         x = _fuse_inputs(dcfg, dparams, h[:, None], tok_emb)
         x = _layer(dcfg, dparams, x, cache["k"], cache["v"],
-                   cache["lengths"], cache["pad"])
+                   cache["lengths"], cache["pad"], cache.get("tbl"))
         h_new = rmsnorm(dparams["final_norm"], x, dcfg.norm_eps)[:, 0]
         logits_new = _head(dcfg, dparams, h_new[:, None])[:, 0]
         cache = dict(cache, lengths=cache["lengths"] + 1)
@@ -218,4 +236,19 @@ def scatter_draft_rows(live, new, mask, src):
     refill-batch cache, in place."""
     for k in live:
         scatter_batch_rows(live[k], new[k], mask, src, axis=0)
+    return live
+
+
+def scatter_draft_rows_paged(live, new, mask, src):
+    """Paged twin of ``scatter_draft_rows``: write the K/V rows of the
+    dense R-row staging cache ``new`` for the masked lanes of the paged
+    ``live`` cache through its block table (other lanes go to the trash
+    page), and scatter lengths/pad as rows; all in place.  The table is
+    host-authoritative and left as it is."""
+    from repro_torch.core.paging import write_rows_paged
+    for leaf in ("k", "v"):
+        rows = new[leaf].index_select(0, src.long())     # (B, W, Hk, D)
+        write_rows_paged(live[leaf], live["tbl"], rows, mask)
+    for leaf in ("lengths", "pad"):
+        scatter_batch_rows(live[leaf], new[leaf], mask, src, axis=0)
     return live

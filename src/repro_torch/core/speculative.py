@@ -216,6 +216,28 @@ def scatter_target_cache(cache, new, mask, src):
     return cache
 
 
+def scatter_target_cache_paged(cache, new, mask, src):
+    """Paged twin of ``scatter_target_cache``: ``cache`` holds page pools
+    (repeats, NP + 1, P, Hk, D) and ``page_tbl``.  For every layer group
+    present in ``new`` (a dense staging cache, leaves (repeats, R, W, Hk,
+    D)) the masked lanes' rows are written through the block table, in
+    place, other lanes to the trash page; ``lengths``/``pad`` scatter as
+    rows.  Groups absent from ``new`` were written straight into the
+    pools by the paged prefill (``T.prefill(..., pools=)``)."""
+    from repro_torch.core.paging import write_rows_paged
+    tbl = cache["page_tbl"]
+    for k, v in cache.items():
+        if k in ("lengths", "pad"):
+            scatter_rows(v, new[k], mask, src, axis=0)
+        elif k != "page_tbl" and k in new:
+            for pos, entry in v.items():
+                for leaf, pools in entry.items():
+                    staged = new[k][pos][leaf].index_select(1, src.long())
+                    for i in range(pools.shape[0]):
+                        write_rows_paged(pools[i], tbl, staged[i], mask)
+    return cache
+
+
 def scatter_carry(live: SpecCarry, new: SpecCarry, mask, src) -> SpecCarry:
     """A new carry with the masked lanes replaced.  Not in place: the
     carry is small, and its tensors are also the round's committed

@@ -1,6 +1,19 @@
-// Shared device code of the two attention kernels (flash_attn.cu,
-// verify_attn.cu): masked GQA attention over one lane's KV rows with an
-// fp32 online softmax.
+// Shared device code of the attention kernels (flash_attn.cu,
+// verify_attn.cu and their paged twins flash_attn_paged.cu,
+// verify_attn_paged.cu): masked GQA attention over one lane's KV rows
+// with an fp32 online softmax.
+//
+// K/V addressing is a compile-time policy (the Paged template flag):
+//   dense: lane b's key kp is row (b*S + kp)*Hk + hk of a (B, S, Hk, D)
+//          cache;
+//   paged: it is slot kp % P of page tbl[b*n_tbl + kp/P] of a
+//          (NP + 1, P, Hk, D) pool, row (page*P + kp % P)*Hk + hk.
+// Each thread looks the page up once for each key row it loads; P need
+// not divide the 32-key tile.  Only keys inside the block's key range
+// are loaded, so table entries (and the trash page) past a lane's last
+// visible key are never read.  The tile order and the arithmetic do not
+// depend on the policy: a paged call returns, bit for bit, what the
+// dense kernel returns on the gathered view gather_view(pool, tbl).
 //
 // Work split.  One thread block per (row tile, kv head, lane).  The
 // rows of a block are the kRows = 16 (query position t, query head g)
@@ -92,9 +105,25 @@ struct AttnArgs {
   int B, T, S, Hq, Hk;
   int causal, window;
   float scale;
+  // paged only (last, so the dense kernel's parameter offsets, and with
+  // them its machine code, are those of the dense-only version)
+  const int* tbl;    // (B, n_tbl) page ids
+  int n_tbl, page;   // table width, page size P
 };
 
-template <typename T, int D>
+// Row (in units of D elements) of lane b's key kp for kv head hk.
+template <bool Paged>
+__device__ __forceinline__ size_t kv_row(const AttnArgs& a, int b, int kp,
+                                         int hk) {
+  if constexpr (Paged) {
+    const int pg = __ldg(a.tbl + (size_t)b * a.n_tbl + kp / a.page);
+    return ((size_t)pg * a.page + kp % a.page) * a.Hk + hk;
+  } else {
+    return ((size_t)b * a.S + kp) * a.Hk + hk;
+  }
+}
+
+template <typename T, int D, bool Paged>
 __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
   constexpr int C = D / 32;
   const int G = a.Hq / a.Hk;
@@ -178,7 +207,7 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
       const int kp = k0 + e0 / D;
       kraw[u] = vraw[u] = make_uint4(0, 0, 0, 0);
       if (vi < kKVVec && kp >= kv_lo && kp <= kv_hi) {
-        const size_t off = (((size_t)b * a.S + kp) * a.Hk + hk) * D + e0 % D;
+        const size_t off = kv_row<Paged>(a, b, kp, hk) * D + e0 % D;
         kraw[u] = *reinterpret_cast<const uint4*>(kc + off);
         vraw[u] = *reinterpret_cast<const uint4*>(vc + off);
       }
@@ -259,14 +288,18 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int.
+template <bool Paged>
 inline int launch_attn_rows(const AttnArgs& a, int head_dim, int dtype,
                             cudaStream_t stream) {
   if (a.Hk <= 0 || a.Hq % a.Hk != 0 || a.T <= 0 || a.B <= 0) return (int)cudaErrorInvalidValue;
+  if (Paged && (a.tbl == nullptr || a.page <= 0 || a.n_tbl <= 0 ||
+                a.S > a.n_tbl * a.page))
+    return (int)cudaErrorInvalidValue;
   const int nrows = a.T * (a.Hq / a.Hk);
   const dim3 grid((nrows + kRows - 1) / kRows, a.Hk, a.B);
   const dim3 block(kWarps * 32);
 #define REPRO_ATTN_CASE(DT, DD)                                         \
-  attn_rows_kernel<DT, DD><<<grid, block, 0, stream>>>(a);              \
+  attn_rows_kernel<DT, DD, Paged><<<grid, block, 0, stream>>>(a);              \
   return (int)cudaGetLastError();
   if (dtype == 0) {
     if (head_dim == 32) { REPRO_ATTN_CASE(float, 32) }

@@ -43,6 +43,8 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
   a.o = out;
   a.qoff = nullptr;
   a.pad = pad;
+  a.tbl = nullptr;
+  a.n_tbl = a.page = 0;
   a.B = B;
   a.T = S;
   a.S = S;
@@ -51,5 +53,5 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
-  return repro::launch_attn_rows(a, D, dtype, static_cast<cudaStream_t>(stream));
+  return repro::launch_attn_rows<false>(a, D, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -37,6 +37,8 @@ extern "C" int repro_verify_attn(const void* q, const void* k, const void* v,
   a.o = out;
   a.qoff = lengths;
   a.pad = pad;
+  a.tbl = nullptr;
+  a.n_tbl = a.page = 0;
   a.B = B;
   a.T = T;
   a.S = Smax;
@@ -45,5 +47,5 @@ extern "C" int repro_verify_attn(const void* q, const void* k, const void* v,
   a.causal = 1;
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
-  return repro::launch_attn_rows(a, D, dtype, static_cast<cudaStream_t>(stream));
+  return repro::launch_attn_rows<false>(a, D, dtype, static_cast<cudaStream_t>(stream));
 }

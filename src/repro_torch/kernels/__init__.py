@@ -45,5 +45,31 @@ def lane_ints(x, b: int, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
+def check_pools(q, k_pool, v_pool, tbl) -> torch.Tensor:
+    """Shape checks of a paged kernel's arguments: q (B, T, Hq, D),
+    k/v_pool (NP + 1, P, Hk, D) page pools (not a layer-stacked leaf, not
+    a dense cache with its lane axis), tbl (B, n_tbl) page ids.  Returns
+    the table as contiguous int32."""
+    b, _, hq, d = q.shape
+    require(k_pool.dim() == 4 and k_pool.shape == v_pool.shape
+            and k_pool.shape[3] == d and k_pool.shape[0] >= 2,
+            f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)} are not "
+            f"(NP + 1, P, Hk, {d}) page pools")
+    require(tbl.dim() == 2 and tbl.shape[0] == b and tbl.shape[1] >= 1
+            and not tbl.is_floating_point(),
+            f"block table {tuple(tbl.shape)} {tbl.dtype} is not ({b}, n_tbl) "
+            "page ids")
+    hk = k_pool.shape[2]
+    require(hq % hk == 0 and d in HEAD_DIMS,
+            f"heads {hq}/{hk}, head_dim {d} not supported")
+    require(q.dtype == k_pool.dtype == v_pool.dtype, "q/pool dtypes differ")
+    require(all(x.is_contiguous() for x in (q, k_pool, v_pool)),
+            "q and the pools must be contiguous")
+    require(all(x.data_ptr() % 16 == 0 for x in (q, k_pool, v_pool)),
+            "q and the pools must be 16-byte aligned (the kernel loads "
+            "16-byte vectors)")
+    return tbl.to(torch.int32).contiguous()
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream

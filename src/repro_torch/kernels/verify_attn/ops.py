@@ -1,12 +1,13 @@
-"""Decode-side attention: CUDA kernel on the card, plain version on the
-CPU."""
+"""Decode-side attention, dense and paged: CUDA kernels on the card,
+plain versions on the CPU."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (HEAD_DIMS, dtype_code, lane_ints, on_cpu,
-                                 require, stream_of)
-from repro_torch.kernels.verify_attn.ref import verify_attention_ref
+from repro_torch.kernels import (HEAD_DIMS, check_pools, dtype_code,
+                                 lane_ints, on_cpu, require, stream_of)
+from repro_torch.kernels.verify_attn.ref import (verify_attention_paged_ref,
+                                                 verify_attention_ref)
 
 
 def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
@@ -53,3 +54,42 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
 
 
 verify_attention.launches = 0
+
+
+def verify_attention_paged(q, k_pool, v_pool, tbl, lengths, pad=None, *,
+                           window: int = 0, softcap: float = 0.0):
+    """q: (B, T, Hq, D) queries at positions lengths[b] + [0..T);
+    k/v_pool: (NP + 1, P, Hk, D) page pools holding the new block;
+    tbl: (B, n_tbl) page ids (lane window n_tbl * P); lengths, pad: (B,)
+    ints.  Returns (B, T, Hq, D) in q.dtype.
+
+    CPU tensors take ``verify_attention_paged_ref``; CUDA tensors launch
+    ``csrc/verify_attn_paged.cu`` or raise.
+    ``verify_attention_paged.launches`` counts the kernel launches."""
+    if on_cpu(q, k_pool, v_pool, tbl, lengths):
+        return verify_attention_paged_ref(q, k_pool, v_pool, tbl, lengths,
+                                          pad, window=window,
+                                          softcap=softcap)
+    if softcap:
+        raise NotImplementedError("the CUDA verify kernel has no logit "
+                                  "softcap (no Pallas kernel has one)")
+    tbl_t = check_pools(q, k_pool, v_pool, tbl)
+    b, t, hq, d = q.shape
+    p, hk = k_pool.shape[1], k_pool.shape[2]
+    code = dtype_code(q)
+    len_t = lane_ints(lengths, b, q.device)
+    pad_t = lane_ints(pad, b, q.device)
+    out = torch.empty_like(q)
+    from repro_torch.kernels.build import check, library
+    with torch.cuda.device(q.device):
+        err = library().repro_verify_attn_paged(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tbl_t.data_ptr(), len_t.data_ptr(), pad_t.data_ptr(),
+            out.data_ptr(), b, t, tbl_t.shape[1], p, hq, hk, d, int(window),
+            code, stream_of(q))
+    check(err, "verify_attention_paged")
+    verify_attention_paged.launches += 1
+    return out
+
+
+verify_attention_paged.launches = 0

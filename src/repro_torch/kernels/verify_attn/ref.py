@@ -1,14 +1,15 @@
-"""Plain PyTorch version of the decode-side attention kernel (port of
-``repro/kernels/verify_attn/ref.py``, chain mode).
+"""Plain PyTorch versions of the decode-side attention kernels (port of
+``repro/kernels/verify_attn/ref.py``, chain mode): dense and paged.
 
-Used by the CPU path and as the card's comparison for the CUDA kernel
-(``csrc/verify_attn.cu``).  A row with no visible key is zeros, as in
+Used by the CPU path and as the card's comparison for the CUDA kernels
+(``csrc/verify_attn.cu``, ``csrc/verify_attn_paged.cu``).  A row with no visible key is zeros, as in
 the kernel (the JAX reference gives such rows a uniform average; they
 occur only on inert lanes)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.paging import gather_view
 from repro_torch.models.attention import attend
 
 
@@ -34,3 +35,14 @@ def verify_attention_ref(q, k_cache, v_cache, lengths, pad=None, *,
     mask = verify_mask(lengths, q.shape[1], k_cache.shape[1], pad,
                        window=window)
     return attend(q, k_cache, v_cache, mask[:, None, None], softcap=softcap)
+
+
+def verify_attention_paged_ref(q, k_pool, v_pool, tbl, lengths, pad=None, *,
+                               window: int = 0, softcap: float = 0.0):
+    """Paged version: ``verify_attention_ref`` over each lane's dense
+    (B, n_tbl * P) view gathered through the block table (the JAX
+    ``verify_attention_paged_ref``).  k/v_pool: (NP + 1, P, Hk, D);
+    tbl: (B, n_tbl)."""
+    return verify_attention_ref(q, gather_view(k_pool, tbl),
+                                gather_view(v_pool, tbl), lengths, pad,
+                                window=window, softcap=softcap)

@@ -8,6 +8,14 @@ prefill through ``kernels/flash_attn`` and every decode-side call (target
 verify and plain decode, draft extend and propose) through
 ``kernels/verify_attn``.  On CPU tensors those wrappers run their plain
 versions, which are ``attend`` under the same masks.
+
+Paged caches (``core/paging``): decode writes the new K/V through the
+block table and attends straight through it (``verify_attention_paged``);
+where JAX gathers a dense ``(B, max_len)`` view first, the port never
+builds one.  The paged refill prefill writes each layer's prompt K/V into
+the lanes' reserved pages and attends over them
+(``flash_attention_paged``); JAX prefills into a dense staging cache and
+copies it through the table afterwards.  Both compute what JAX computes.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.core.paging import scatter_kv_paged, write_rows_paged
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import EMBED, HEADS, KV_HEADS, QKV
 from repro_torch.models.param import ParamSpec
@@ -117,25 +126,45 @@ def scatter_kv(cache, new, lengths):
     return cache
 
 
-def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None):
+def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
+                           *, pools=None, tbl_rows=None):
     """Causal prefill over the whole prompt.  positions: (B, S) RoPE
     positions; pad: optional (B,) left-pad widths.  Returns
-    (out, (k, v)), k/v kept for the cache."""
-    from repro_torch.kernels.flash_attn.ops import flash_attention
+    (out, (k, v)), k/v kept for the cache.
+
+    Paged (``pools`` = this layer's (k_pool, v_pool), each (NP + 1, P,
+    Hk, D), and ``tbl_rows`` (B, n_tbl) page ids): the prompt's K/V is
+    written at positions [0, S) through ``tbl_rows``, in place, and the
+    attention reads it back through the table."""
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_paged)
     q, k, v = qkv_proj(params, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, pad, causal=True, window=cfg.window,
-                        softcap=cfg.attn_logit_softcap)
+    if pools is None:
+        o = flash_attention(q, k, v, pad, causal=True, window=cfg.window,
+                            softcap=cfg.attn_logit_softcap)
+    else:
+        k_pool, v_pool = pools
+        write_rows_paged(k_pool, tbl_rows, k)
+        write_rows_paged(v_pool, tbl_rows, v)
+        o = flash_attention_paged(q, k_pool, v_pool, tbl_rows, pad,
+                                  causal=True, window=cfg.window,
+                                  softcap=cfg.attn_logit_softcap)
     return out_proj(params, o), (k, v)
 
 
 def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
-                          lengths, pad=None):
+                          lengths, pad=None, *, page_tbl=None):
     """x: (B, T, D) new tokens at cache positions lengths + [0..T).
     RoPE positions are lengths - pad + t.  Writes the new K/V into the
-    caches in place, then attends through the verify kernel."""
-    from repro_torch.kernels.verify_attn.ops import verify_attention
+    caches in place, then attends through the verify kernel.
+
+    Paged (``page_tbl`` (B, n_tbl) given): k/v_cache are the layer's
+    (NP + 1, P, Hk, D) page pools; the write and the attention go
+    through the block table."""
+    from repro_torch.kernels.verify_attn.ops import (verify_attention,
+                                                     verify_attention_paged)
     b, t, _ = x.shape
     q, k, v = qkv_proj(params, x)
     rope_pos = lengths[:, None].long() + torch.arange(t, device=x.device)[None]
@@ -143,8 +172,16 @@ def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
         rope_pos = rope_pos - pad[:, None].long()
     q = apply_rope(q, rope_pos, cfg.rope_theta)
     k = apply_rope(k, rope_pos, cfg.rope_theta)
-    scatter_kv(k_cache, k, lengths)
-    scatter_kv(v_cache, v, lengths)
-    o = verify_attention(q, k_cache, v_cache, lengths, pad, window=cfg.window,
-                         softcap=cfg.attn_logit_softcap)
+    if page_tbl is None:
+        scatter_kv(k_cache, k, lengths)
+        scatter_kv(v_cache, v, lengths)
+        o = verify_attention(q, k_cache, v_cache, lengths, pad,
+                             window=cfg.window,
+                             softcap=cfg.attn_logit_softcap)
+    else:
+        scatter_kv_paged(k_cache, page_tbl, k, lengths)
+        scatter_kv_paged(v_cache, page_tbl, v, lengths)
+        o = verify_attention_paged(q, k_cache, v_cache, page_tbl, lengths,
+                                   pad, window=cfg.window,
+                                   softcap=cfg.attn_logit_softcap)
     return out_proj(params, o), (k_cache, v_cache)

@@ -9,9 +9,16 @@ with ``(L, B, max_len, Hk, D)`` leaves).  JAX's buffer donation becomes
 in-place updates: ``decode_step`` writes the new block's K/V into the
 live cache tensors and returns the same tensors.
 
+Paged caches (``init_cache(..., page_size=P, num_pages=NP)``) hold
+``(L, NP + 1, P, Hk, D)`` page pools and one ``page_tbl`` (B, max_len // P)
+block table instead; ``decode_step`` writes and attends through the
+table, and ``prefill(..., pools=, tbl_rows=)`` writes the prompt's K/V
+straight into the pools (no dense K/V is built).
+
 Entry points: ``param_specs`` / ``init``, ``prefill``, ``decode_step``,
-``commit_cache``, ``init_cache``.  Only attention mixers with the SwiGLU
-FFN are ported; other block kinds raise ``NotImplementedError``.
+``commit_cache``, ``init_cache``, ``paged_check``.  Only attention mixers
+with the SwiGLU FFN are ported; other block kinds raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -90,21 +97,25 @@ def _slices(group, repeats: int, pi: int):
 
 
 # ============================================================== layer apply
-def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad):
-    """Returns (x, (k, v))."""
+def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad, pools=None,
+                        tbl_rows=None):
+    """Returns (x, (k, v)).  ``pools``/``tbl_rows``: the paged prefill
+    (``attention.self_attention_prefill``)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, kv = attn.self_attention_prefill(cfg, p["mix"], h, positions, pad)
+    out, kv = attn.self_attention_prefill(cfg, p["mix"], h, positions, pad,
+                                          pools=pools, tbl_rows=tbl_rows)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + ffn(p["ffn"], h2), kv
 
 
 def apply_layer_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths,
-                       pad):
-    """Writes this layer's new K/V into k_cache/v_cache in place."""
+                       pad, page_tbl=None):
+    """Writes this layer's new K/V into k_cache/v_cache (or, with
+    ``page_tbl``, its page pools) in place."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, _ = attn.self_attention_decode(cfg, p["mix"], h, k_cache, v_cache,
-                                        lengths, pad)
+                                        lengths, pad, page_tbl=page_tbl)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + ffn(p["ffn"], h2)
@@ -119,39 +130,51 @@ def _update_caps(caps, cap_targets, lidx: int, x):
 
 
 def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
-                      pad, base_idx: int, cap_targets, max_len: int, caps):
-    """Loop over the group's layers.  Returns (x, cache_group, caps)."""
+                      pad, base_idx: int, cap_targets, max_len: int, caps,
+                      pool_group=None, tbl_rows=None):
+    """Loop over the group's layers.  Returns (x, cache_group, caps);
+    with ``pool_group`` (the live paged cache's group) each layer writes
+    its K/V through ``tbl_rows`` into the pools and cache_group is
+    None."""
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prefill len {s} > max_len {max_len}")
     hk, hd = cfg.num_kv_heads, cfg.head_dim
-    cache_group = {}
+    cache_group = None
+    if pool_group is None:
+        cache_group = {}
+        for pi in range(len(pattern)):
+            shape = (repeats, b, max_len, hk, hd)
+            cache_group[f"pos{pi}"] = {
+                "k": torch.zeros(shape, dtype=x.dtype, device=x.device),
+                "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
-    for pi in range(len(pattern)):
-        shape = (repeats, b, max_len, hk, hd)
-        cache_group[f"pos{pi}"] = {
-            "k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-            "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
     for i in range(repeats):
         for pi in range(len(pattern)):
+            pools = None
+            if pool_group is not None:
+                entry = pool_group[f"pos{pi}"]
+                pools = (entry["k"][i], entry["v"][i])
             x, (k, v) = apply_layer_prefill(cfg, per_pos[pi][i], x,
-                                            positions, pad)
-            entry = cache_group[f"pos{pi}"]
-            entry["k"][i, :, :s] = k
-            entry["v"][i, :, :s] = v
+                                            positions, pad, pools, tbl_rows)
+            if cache_group is not None:
+                entry = cache_group[f"pos{pi}"]
+                entry["k"][i, :, :s] = k
+                entry["v"][i, :, :s] = v
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, cache_group, caps
 
 
 def run_group_decode(cfg, group_params, pattern, repeats, x, cache_group,
-                     lengths, pad, base_idx: int, cap_targets, caps):
+                     lengths, pad, base_idx: int, cap_targets, caps,
+                     page_tbl=None):
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
     for i in range(repeats):
         for pi in range(len(pattern)):
             entry = cache_group[f"pos{pi}"]
             x = apply_layer_decode(cfg, per_pos[pi][i], x, entry["k"][i],
-                                   entry["v"][i], lengths, pad)
+                                   entry["v"][i], lengths, pad, page_tbl)
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, caps
@@ -175,11 +198,18 @@ def _run_groups(cfg, params, x, runner):
 
 
 def prefill(cfg: ModelConfig, params, tokens, *,
-            max_len: Optional[int] = None, pad=None):
+            max_len: Optional[int] = None, pad=None, pools=None,
+            tbl_rows=None):
     """Prompt pass.  tokens: (B, S); pad: optional (B,) left-pad widths
     (RoPE positions max(arange(S) - pad, 0)).  Returns dict(logits (B,V)
     fp32 at the last position, cache (K/V placed in max_len buffers),
-    captures (B, S, 3D))."""
+    captures (B, S, 3D)).
+
+    Paged: ``pools`` is a live paged cache (``init_cache(...,
+    page_size=P)``) and ``tbl_rows`` (B, n_tbl) the page ids of each
+    prompt row; every layer writes its K/V at positions [0, S) of its
+    row's pages, in place, and the returned cache holds only
+    ``lengths`` and ``pad``."""
     b, s = tokens.shape
     dev = tokens.device
     max_len = max_len or s
@@ -192,9 +222,12 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     cache: Dict[str, Any] = {}
 
     def runner(name, pattern, repeats, x, base, caps):
-        x, cache[name], caps = run_group_prefill(
+        x, group, caps = run_group_prefill(
             cfg, params[name], pattern, repeats, x, positions, pad, base,
-            cfg.captures, max_len, caps)
+            cfg.captures, max_len, caps,
+            None if pools is None else pools[name], tbl_rows)
+        if group is not None:
+            cache[name] = group
         return x, caps
 
     x, caps = _run_groups(cfg, params, x, runner)
@@ -210,16 +243,18 @@ def prefill(cfg: ModelConfig, params, tokens, *,
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """Verify/decode block: tokens (B, T) at cache positions
-    lengths + [0..T).  Writes the block's K/V into ``cache`` in place and
-    returns dict(logits (B,T,V) fp32, cache (same tensors, lengths not
-    advanced), captures (B,T,3D))."""
+    lengths + [0..T).  Writes the block's K/V into ``cache`` in place
+    (through ``page_tbl`` when the cache is paged) and returns
+    dict(logits (B,T,V) fp32, cache (same tensors, lengths not advanced),
+    captures (B,T,3D))."""
     lengths, pad = cache["lengths"], cache["pad"]
+    page_tbl = cache.get("page_tbl")
     x = embed(params["embed"], tokens, cfg.act_dtype)
 
     def runner(name, pattern, repeats, x, base, caps):
         return run_group_decode(cfg, params[name], pattern, repeats, x,
                                 cache[name], lengths, pad, base,
-                                cfg.captures, caps)
+                                cfg.captures, caps, page_tbl)
 
     x, caps = _run_groups(cfg, params, x, runner)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -238,16 +273,39 @@ def commit_cache(cfg: ModelConfig, cache, n_accept):
     return new
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> dict:
-    """Zero-initialised dense decode cache."""
+def paged_check(cfg: ModelConfig, max_len: int, page_size: int):
+    """Validate a paged-cache request: the lane window must tile into
+    whole pages (the port's mixers are all attention)."""
+    model_groups(cfg)
+    if page_size <= 0:
+        raise ValueError(f"page_size must be positive, got {page_size}")
+    if max_len % page_size:
+        raise ValueError(
+            f"max_len {max_len} must be a multiple of page_size "
+            f"{page_size}")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+               page_size: int = 0, num_pages: int = 0) -> dict:
+    """Zero-initialised decode cache.  With ``page_size > 0`` the K/V
+    leaves are page pools ``(repeats, num_pages + 1, page_size, Hk, D)``
+    (page ``num_pages`` is the trash page) and ``page_tbl`` (batch,
+    max_len // page_size) maps every entry to the trash page."""
     hk, hd = cfg.num_kv_heads, cfg.head_dim
     cache: Dict[str, Any] = {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
         "pad": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    shape = (batch, max_len, hk, hd)
+    if page_size > 0:
+        paged_check(cfg, max_len, page_size)
+        cache["page_tbl"] = torch.full((batch, max_len // page_size),
+                                       num_pages, dtype=torch.int32,
+                                       device=device)
+        shape = (num_pages + 1, page_size, hk, hd)
     for name, pattern, repeats in model_groups(cfg):
         cache[name] = {
-            f"pos{pi}": {k: torch.zeros((repeats, batch, max_len, hk, hd),
+            f"pos{pi}": {k: torch.zeros((repeats,) + shape,
                                         dtype=cfg.act_dtype, device=device)
                          for k in ("k", "v")}
             for pi in range(len(pattern))}

@@ -1,4 +1,4 @@
-"""TIDE serving engine, dense greedy chain path (port of
+"""TIDE serving engine, greedy chain path, dense or paged KV (port of
 ``repro/serving/engine.py``).
 
 Continuous batching over B resident lanes: ``serve_stream`` keeps the
@@ -26,10 +26,26 @@ Differences from the JAX engine:
     refill and commit ops write into the live cache tensors.
   * Entry points run on ``cuda`` unless ``device="cpu"`` is passed; with
     no device given and no CUDA card, construction raises.
-  * Only this slice is ported.  Sampled decoding, paged KV, chunked
-    refill prefill, tree speculation and deploy re-seeding raise
-    ``NotImplementedError`` naming their ROADMAP item; preemption and
-    load shedding have no knob in the port yet.
+  * Paged KV (``ServingConfig(page_size=P)``): the target and draft
+    caches are page pools behind a host-authoritative block table
+    (``core.paging``); lanes reserve pages at admission and the
+    scheduler's admission guard defers what the pool cannot cover.
+    Where JAX prefills a refill into a dense staging cache and copies it
+    through the table, the port's refill prefill writes each layer's
+    K/V straight into the lanes' pages and attends through the table
+    (``flash_attention_paged``); decode attends through the table
+    (``verify_attention_paged``) without building a dense view.  Table
+    snapshots and refill page rows reach the device by asynchronous
+    copies from pinned memory, so paging adds no host sync.  Committed
+    prompt prefixes are shared copy-on-write at commit, on the one-shot
+    path.  The pools live as long as the engine, so a prefix published
+    in one ``serve_stream`` stays valid in the next (the JAX engine makes
+    new pools per stream but keeps its registry).
+  * Only this slice is ported.  Sampled decoding, chunked refill prefill
+    (and with it the paged prefix resume), tree speculation and deploy
+    re-seeding raise ``NotImplementedError`` naming their ROADMAP item;
+    preemption, spill/restore and load shedding have no knob in the
+    port yet.
 """
 from __future__ import annotations
 
@@ -41,7 +57,7 @@ from typing import Callable, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import eagle, speculative as spec
+from repro_torch.core import eagle, paging, speculative as spec
 from repro_torch.core.adaptive import AdaptiveDrafter
 from repro_torch.core.controller import Decision, TrainingController
 from repro_torch.core.signals import SignalExtractor
@@ -62,6 +78,8 @@ _STATS_COUNTERS = (
     "tokens_out", "steps", "spec_steps", "dispatches", "refills",
     "idle_supersteps", "deploys", "completed", "accept_len_n",
     "lane_rounds", "busy_lane_rounds", "prefill_row_tokens",
+    "pages_peak", "prefix_hits", "prefix_tokens_saved",
+    "admission_deferrals",
 )
 _STATS_FLOAT_COUNTERS = ("wall_s", "accept_len_sum")
 
@@ -181,7 +199,6 @@ def _unported(config: ServingConfig):
     """Raise for every configuration outside this slice."""
     checks = (
         (not config.greedy, "greedy=False", "sampled decoding"),
-        (config.page_size > 0, "page_size>0", "paged KV"),
         (config.prefill_chunk > 0, "prefill_chunk>0",
          "chunked refill prefill"),
         (config.tree_width > 0, "tree_width>0", "tree speculation"),
@@ -260,6 +277,20 @@ class ServingEngine:
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.stats = ServingStats(registry=self.metrics)
+        # paged KV (page_size > 0): a host-side allocator over page pools
+        # made at the first prologue and kept for the engine's lifetime
+        self.page_size = config.page_size
+        self.paged = self.page_size > 0
+        self.allocator: Optional[paging.PageAllocator] = None
+        self.num_pages = 0
+        self._pools = None
+        if self.paged:
+            T.paged_check(cfg, self.max_len, self.page_size)
+            self.num_pages = (config.num_pages or
+                              self.batch * self.max_len // self.page_size)
+            self.allocator = paging.PageAllocator(
+                self.num_pages, self.page_size, self.batch, self.max_len,
+                share_prefix=config.share_prefix)
         self.policy.speculation.on_transition = self._spec_transition
         self._register_obs_metrics()
         self._sid_next = 0
@@ -276,9 +307,9 @@ class ServingEngine:
     def _t(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
-    def _prefill(self, toks, pad):
+    def _prefill(self, toks, pad, pools=None, tbl_rows=None):
         return T.prefill(self.cfg, self.params, toks, max_len=self.max_len,
-                         pad=pad)
+                         pad=pad, pools=pools, tbl_rows=tbl_rows)
 
     def _ema_step(self, ema: float, ell: float) -> float:
         """The superstep's EMA op, on the engine device, from host
@@ -287,24 +318,35 @@ class ServingEngine:
                               self._t(ell, torch.float32), self._ema)
         return float(self._host(out))
 
-    def _refill_core(self, cache, dcache, toks, pad, mask, src):
+    def _refill_core(self, cache, dcache, toks, pad, mask, src,
+                     tbl_rows=None):
         """Prefill a refill batch of R prompts and write their lanes into
-        the live caches in place.  Returns (cache, dcache, the R-batch
-        prefill carry, the R first tokens)."""
-        pre = self._prefill(toks, pad)
+        the live caches in place.  Paged: ``tbl_rows`` (R, n_tbl) holds
+        each refill row's lane table row (all trash for a row no lane
+        gathers), and the prefill writes the target K/V through it.
+        Returns (cache, dcache, the R-batch prefill carry, the R first
+        tokens)."""
+        if self.paged:
+            pre = self._prefill(toks, pad, cache, tbl_rows)
+        else:
+            pre = self._prefill(toks, pad)
         first = self._pick(pre["logits"])
         rdc = eagle.seed_refill_cache(self.dcfg, self.dparams,
                                       self.params["embed"], pre["captures"],
                                       toks, pad, self.max_len)
-        spec.scatter_target_cache(cache, pre["cache"], mask, src)
-        eagle.scatter_draft_rows(dcache, rdc, mask, src)
+        if self.paged:
+            spec.scatter_target_cache_paged(cache, pre["cache"], mask, src)
+            eagle.scatter_draft_rows_paged(dcache, rdc, mask, src)
+        else:
+            spec.scatter_target_cache(cache, pre["cache"], mask, src)
+            eagle.scatter_draft_rows(dcache, rdc, mask, src)
         carry_r = spec.init_carry(self.cfg, self.dcfg, pre, first, self.gamma)
         return cache, dcache, carry_r, first
 
     def _refill_superstep(self, cache, dcache, state, max_new, toks, pad,
-                          mask, src, budgets, sids):
+                          mask, src, budgets, sids, tbl_rows=None):
         cache, dcache, carry_r, first = self._refill_core(
-            cache, dcache, toks, pad, mask, src)
+            cache, dcache, toks, pad, mask, src, tbl_rows)
         state = spec.refill_superstep_state(
             state, carry_r, first, budgets, mask, src, eos_id=self.eos_id,
             sids=sids)
@@ -361,6 +403,14 @@ class ServingEngine:
         reg.gauge("spec.probing", fn=lambda: int(sp.probing))
         reg.gauge("spec.gamma", fn=lambda: self.gamma)
         reg.gauge("spec.accept_ema", fn=lambda: self.accept_ema)
+        if self.allocator is not None:
+            self.allocator.register_metrics(reg)
+        else:
+            # dense engines expose the namespace too (all zero)
+            for name in ("pages_in_use", "pages_free", "pages_peak",
+                         "prefix_hits", "prefix_tokens_saved", "evictions",
+                         "cow_forks"):
+                reg.gauge(f"paging.{name}")
 
     def _spec_transition(self, kind: str, fields: dict):
         if self.tracer.enabled:
@@ -439,6 +489,21 @@ class ServingEngine:
             toks[i, pad[i]:] = r.prompt
         toks_t, pad_t = self._t(toks, torch.int32), self._t(pad, torch.int32)
         self._note_prefill_op(b, plen)
+        if self.paged:
+            # a refill of every lane: reserve the live ones (inert slots
+            # are not scheduler-owned and map nothing), write the batch
+            # prefill through the tables, then publish the prefixes
+            group = [(i, r) for i, r in enumerate(requests)
+                     if r.finish_t is None]
+            self._reserve_group(group, plen)
+            cache, dcache = self._paged_caches()
+            cache, dcache, carry, first = self._refill_core(
+                cache, dcache, toks_t, pad_t,
+                torch.ones((b,), dtype=torch.bool, device=self.device),
+                torch.arange(b, dtype=torch.int32, device=self.device),
+                self._tbl_rows(list(enumerate(requests)), b))
+            self._publish_prefixes(self._prefix_entries(group, b, plen))
+            return cache, dcache, carry, first
         pre = self._prefill(toks_t, pad_t)
         first = self._pick(pre["logits"])
         dcache = eagle.init_draft_cache(self.dcfg, b, self.max_len,
@@ -475,6 +540,8 @@ class ServingEngine:
                           gate_arrivals=self.gate_arrivals,
                           clock=self._clock,
                           completion_sink=self.completion_sink,
+                          admission_guard=(self._admission_guard
+                                           if self.paged else None),
                           tracer=self.tracer)
         t0 = self._clock()
         while not sched.has_work():
@@ -505,6 +572,8 @@ class ServingEngine:
     def _retire_and_admit(self, sched: Scheduler, on_complete):
         """Release finished slots, then admit pending requests into them.
         Returns the new (slot, request) assignments to refill."""
+        if self.paged:
+            self._free_finished_lanes(sched)
         for r in sched.release_finished():
             if on_complete is not None:
                 on_complete(r)
@@ -542,6 +611,156 @@ class ServingEngine:
         return (self._t(toks, torch.int32), self._t(pad, torch.int32),
                 self._t(mask, torch.bool), self._t(src, torch.int32),
                 self._t(budgets, torch.int32), self._t(sids, torch.int32))
+
+    # ------------------------------------------------- paged KV plumbing
+    def _paged_caches(self):
+        """The paged target and draft caches for a new stream: the
+        engine's page pools (made on first use, kept across streams so
+        registry prefixes stay valid) with fresh lengths, pad and
+        tables."""
+        if self._pools is None:
+            self._pools = (
+                T.init_cache(self.cfg, self.batch, self.max_len,
+                             device=self.device, page_size=self.page_size,
+                             num_pages=self.num_pages),
+                eagle.init_draft_cache(self.dcfg, self.batch, self.max_len,
+                                       device=self.device,
+                                       page_size=self.page_size,
+                                       num_pages=self.num_pages))
+        lanes = {k: torch.zeros((self.batch,), dtype=torch.int32,
+                                device=self.device) for k in ("lengths", "pad")}
+        cache = dict(self._pools[0], **lanes)
+        dcache = dict(self._pools[1], **{k: v.clone() for k, v in lanes.items()})
+        self.allocator.dirty = True
+        return self._ship_tables(cache, dcache)
+
+    def _ship_tables(self, cache, dcache):
+        """Give the caches fresh device copies of the block table iff the
+        allocator changed it since the last ship (two copies: the target
+        and the draft cache each hold their own, as in the reference).
+        The copies are enqueued from pinned memory (``paging.to_device``)
+        behind the ops already dispatched, which keep reading the table
+        they were given: no host sync.  No-op on dense engines."""
+        if self.allocator is not None and self.allocator.dirty:
+            cache["page_tbl"] = self.allocator.table_device(self.device)
+            dcache["tbl"] = self.allocator.table_device(self.device)
+            self.allocator.dirty = False
+        return cache, dcache
+
+    def _tbl_rows(self, group: List[Tuple[int, Request]], rows: int):
+        """(rows, n_tbl) device page rows of a refill op: row i gets the
+        table row of group[i]'s lane; rows no lane gathers map only the
+        trash page (their writes land there)."""
+        a = self.allocator
+        tbl = np.full((rows, a.n_tbl), a.trash, np.int32)
+        for row, (slot, _) in enumerate(group):
+            tbl[row] = a.table[slot]
+        return paging.to_device(tbl, self.device)
+
+    def _map_refill(self, cache, dcache, admitted, rows: int, width: int):
+        """Paged refill set-up: reserve the admitted lanes' pages, ship
+        the tables, and build the refill's page rows.  Returns (cache,
+        dcache, tbl_rows); tbl_rows is None on dense engines."""
+        if not self.paged:
+            return cache, dcache, None
+        self._reserve_group(admitted, width)
+        cache, dcache = self._ship_tables(cache, dcache)
+        return cache, dcache, self._tbl_rows(admitted, rows)
+
+    def _reservation(self, width: int, req: Request) -> int:
+        """Token reservation for one lane: prompt width, decode budget,
+        and the verify block that a round writes past the committed
+        length before the accept masks land (gamma + 1)."""
+        return width + req.max_new_tokens + self.gamma + 1
+
+    def _admission_guard(self, req: Request,
+                         accepted: List[Request]) -> bool:
+        """Scheduler veto: would this round's accepted requests plus
+        ``req`` all fit the page pool?  The width charged is the widest
+        bucketed refill width among them (co-admitted refills all pad to
+        it), so the estimate can only over-count."""
+        cands = accepted + [req]
+        wmax = max(max(8, -(-len(r.prompt) // 8) * 8) for r in cands)
+        need = sum(self.allocator.pages_for(self._reservation(wmax, r))
+                   for r in cands)
+        if self.allocator.can_fit(need):
+            return True
+        self.stats.admission_deferrals += 1
+        if self.recorder.enabled:
+            self.recorder.global_event("admission_deferral",
+                                       round_=self.stats.steps,
+                                       rid=req.rid, pages_needed=need)
+        return False
+
+    def _reserve_group(self, group: List[Tuple[int, Request]], width: int):
+        """Map page reservations for the lanes of one refill group (the
+        admission guard already sized the round, so a failure is a logic
+        error, not a deferral)."""
+        for slot, req in group:
+            if not self.allocator.reserve(
+                    slot, self._reservation(width, req)):
+                raise RuntimeError(
+                    f"page reservation for slot {slot} failed after "
+                    "admission passed the pool guard")
+        self._sync_paged_stats()
+
+    def _free_finished_lanes(self, sched: Scheduler):
+        """Release finished lanes' pages before the scheduler clears their
+        slots.  Writes still queued from such a lane land in pages that a
+        later owner's refill (queued behind them) rewrites before it reads
+        them."""
+        for i, r in enumerate(sched.slots):
+            if r is not None and r.finish_t is not None:
+                self.allocator.free_lane(i)
+
+    def _sync_paged_stats(self):
+        a = self.allocator
+        self.stats.pages_peak = a.peak_in_use
+        self.stats.prefix_hits = a.prefix_hits
+        self.stats.prefix_tokens_saved = a.prefix_tokens_saved
+
+    def _prefix_entries(self, group: List[Tuple[int, Request]], rows: int,
+                        width: int):
+        """Provenance keys of one refill group's shareable prompt
+        prefixes: per row the first m = (width - 1) // P pages (the page
+        holding the last draft pair takes the first generated token, so
+        it never shares).  Built on the host from the prompts."""
+        if not self.allocator.share_prefix:
+            return []
+        m = (width - 1) // self.page_size
+        if m <= 0:
+            return []
+        entries = []
+        for slot, req in group:
+            pad = width - len(req.prompt)
+            toks = [0] * pad + list(req.prompt)
+            key = self.allocator.prefix_key(rows, width, pad, toks, m,
+                                            salt=self._deploy_seq)
+            entries.append((slot, key, m))
+        return entries
+
+    def _publish_prefixes(self, entries):
+        """After a refill is enqueued: register each row's prefix pages,
+        or, where an equal prefix is registered, adopt its pages and free
+        the lane's private copies.  The bytes are equal by provenance.
+        The freed copies are still being written by the queued refill;
+        that is safe because every later op is queued behind it on the
+        one stream, and the repointed table ships before the next
+        dispatch."""
+        for slot, key, m in entries:
+            hit = self.allocator.lookup(key)
+            if hit is not None:
+                self.allocator.adopt(slot, hit[:m])
+            else:
+                self.allocator.publish(key, slot, m)
+        if entries:
+            self._sync_paged_stats()
+
+    def release_prefix_cache(self):
+        """Drop the shared-prefix registry (drain hygiene, leak checks).
+        No-op on dense engines."""
+        if self.allocator is not None:
+            self.allocator.release_prefix_cache()
 
     # ----------------------------------------------- superstep hot path
     def _materialize(self, rounds):
@@ -584,6 +803,7 @@ class ServingEngine:
             self._poll_deploy()
             dispatched = False
             if sched.has_work():
+                cache, dcache = self._ship_tables(cache, dcache)
                 with self.tracer.span("superstep.dispatch",
                                       rounds=self.superstep_rounds):
                     out = self._superstep(
@@ -610,13 +830,20 @@ class ServingEngine:
             admitted = self._retire_and_admit(sched, on_complete)
             if admitted:
                 args = self._refill_arrays(admitted)
-                self._note_prefill_op(args[0].shape[0], args[0].shape[1])
-                with self.tracer.span("refill", rows=int(args[0].shape[0]),
-                                      width=int(args[0].shape[1])):
+                rows, width = args[0].shape
+                self._note_prefill_op(rows, width)
+                cache, dcache, tbl_rows = self._map_refill(
+                    cache, dcache, admitted, rows, width)
+                with self.tracer.span("refill", rows=int(rows),
+                                      width=int(width)):
                     cache, dcache, state, max_new, fdev = \
                         self._refill_superstep(cache, dcache, state,
-                                               max_new, *args)
+                                               max_new, *args,
+                                               tbl_rows=tbl_rows)
                 self.stats.refills += len(admitted)
+                if self.paged:
+                    self._publish_prefixes(self._prefix_entries(
+                        admitted, int(rows), int(width)))
                 if pending is not None:
                     pending["refills"].append((fdev, admitted))
                 else:
@@ -723,13 +950,19 @@ class ServingEngine:
             admitted = self._retire_and_admit(sched, on_complete)
             if admitted:
                 toks, pad, mask, src, _, _ = self._refill_arrays(admitted)
-                self._note_prefill_op(toks.shape[0], toks.shape[1])
-                with self.tracer.span("refill", rows=int(toks.shape[0]),
-                                      width=int(toks.shape[1])):
+                rows, width = toks.shape
+                self._note_prefill_op(rows, width)
+                cache, dcache, tbl_rows = self._map_refill(
+                    cache, dcache, admitted, rows, width)
+                with self.tracer.span("refill", rows=int(rows),
+                                      width=int(width)):
                     cache, dcache, carry_r, fdev = self._refill_core(
-                        cache, dcache, toks, pad, mask, src)
+                        cache, dcache, toks, pad, mask, src, tbl_rows)
                     carry = spec.scatter_carry(carry, carry_r, mask, src)
                 self.stats.refills += len(admitted)
+                if self.paged:
+                    self._publish_prefixes(self._prefix_entries(
+                        admitted, int(rows), int(width)))
                 first_np = self._host(fdev)
                 for row, (slot, req) in enumerate(admitted):
                     self._commit_first(req, int(first_np[row]))
@@ -745,6 +978,7 @@ class ServingEngine:
             use_spec = self.policy.speculation.step_decision(
                 int(active.sum()), self.accept_ema)
             self.stats.dispatches += 1
+            cache, dcache = self._ship_tables(cache, dcache)
             if use_spec:
                 with self.tracer.span("step.dispatch", spec=True):
                     out = spec.spec_decode_step(

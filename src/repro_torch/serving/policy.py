@@ -314,8 +314,8 @@ class ServingConfig:
     """Unified serving configuration: every engine/scheduler knob, plus
     the policy selection, in one dataclass (``ServingEngine(config=...)``).
 
-    ``page_size``, ``prefill_chunk``, ``tree_width``, ``reseed_window``
-    and ``greedy=False`` name paths of the JAX engine that are not ported
+    ``prefill_chunk``, ``tree_width``, ``reseed_window`` and
+    ``greedy=False`` name paths of the JAX engine that are not ported
     yet; the engine raises ``NotImplementedError`` for any value but the
     default."""
 
@@ -334,10 +334,18 @@ class ServingConfig:
     idle_wait_s: float = 0.005
     completion_sink: Optional[Callable[[Request], None]] = \
         dataclasses.field(default=None, repr=False)
-    # ---- unported: chunked refill prefill, paged KV, tree speculation
+    # ---- unported: chunked refill prefill, tree speculation
     prefill_chunk: int = 0
-    page_size: int = 0
     tree_width: int = 0
+    # ---- paged KV cache (0 = dense per-lane caches)
+    # page_size > 0 switches target + draft caches to block-table page
+    # pools (core/paging.py): lanes reserve pages at admission, the
+    # scheduler defers admission on pool pressure, and committed prompt
+    # prefixes are COW-shared across lanes (share_prefix).  num_pages=0
+    # sizes the pool to the dense footprint (batch * max_len / page).
+    page_size: int = 0
+    num_pages: int = 0
+    share_prefix: bool = True
     # ---- speculation runtime control (0 = gate only, never park)
     spec_park_patience: int = 0
     spec_probe_interval: int = 8

@@ -54,12 +54,18 @@ class Scheduler:
                  clock: Callable[[], float] = time.perf_counter,
                  completion_sink: Optional[Callable[[Request], None]]
                  = None,
+                 admission_guard: Optional[
+                     Callable[[Request, List[Request]], bool]] = None,
                  tracer=None):
         self.batch = batch_size
         self.policy = policy if policy is not None else FifoAdmission()
         # host-side observability: admission instants + queue-depth
         # counter samples (null by default — a no-op attribute check)
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # resource veto consulted per candidate during ``admit`` (paged
+        # serving passes the page-pool guard): guard(candidate,
+        # already-accepted-this-round) -> False defers the candidate
+        self.admission_guard = admission_guard
         self.slots: List[Optional[Request]] = [None] * batch_size
         self._queue: Deque[Request] = deque()
         self._iter: Optional[Iterator[Request]] = (
@@ -177,24 +183,47 @@ class Scheduler:
         (slot, request) assignments made — the engine's refill batch.
         Each admitted request is stamped with ``admit_t`` (prefill
         starts now — the TTFT clock origin; the injected ``clock`` so
-        latency stats never mix clock domains under a fake clock)."""
+        latency stats never mix clock domains under a fake clock).  An
+        ``admission_guard`` can veto the round's next candidate: under a
+        strict-order policy the round then stops (admitting past the
+        FIFO head would reorder); a reordering policy skips the vetoed
+        candidate and keeps trying the rest of its lookahead window.
+        Deferred requests stay queued and retry once capacity frees."""
         out = []
         now = self._clock()
         for i, r in enumerate(self.slots):
             if r is not None:
                 continue
-            cands = self._admissible()
-            if not cands:
+            req = self._pick_fitting(out)
+            if req is None:
                 break
-            pick = cands[self.policy.select(
-                [self._queue[j] for j in cands], self._now())]
-            req = self._queue[pick]
-            del self._queue[pick]
             req.admit_t = now
             self.slots[i] = req
             self.admitted += 1
             out.append((i, req))
         return self._admit_trace(out)
+
+    def _pick_fitting(self, accepted: List[Tuple[int, Request]]
+                      ) -> Optional[Request]:
+        """Policy-pick one admissible request that passes the admission
+        guard, removing it from the queue (None when there is none)."""
+        vetoed: set = set()
+        while True:
+            cands = [j for j in self._admissible() if j not in vetoed]
+            if not cands:
+                return None
+            pick = cands[self.policy.select(
+                [self._queue[j] for j in cands], self._now())]
+            req = self._queue[pick]
+            if (self.admission_guard is not None
+                    and not self.admission_guard(
+                        req, [q for _, q in accepted])):
+                if self.policy.strict_order:
+                    return None
+                vetoed.add(pick)
+                continue
+            del self._queue[pick]
+            return req
 
     def _admit_trace(self, out: List[Tuple[int, Request]]
                      ) -> List[Tuple[int, Request]]:

@@ -41,7 +41,8 @@ def test_port_file_list_is_complete():
     """The scan covers the package and the smoke script."""
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "src/repro_torch/serving/engine.py",
-                 "src/repro_torch/kernels/verify_attn/ops.py"):
+                 "src/repro_torch/kernels/verify_attn/ops.py",
+                 "src/repro_torch/core/paging.py"):
         assert want in names
 
 
@@ -64,7 +65,7 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize("kw,item", [
     (dict(greedy=False), "sampled decoding"),
     (dict(reseed_window=4), "overload and reseed"),
-    (dict(page_size=8), "paged KV"),
+    (dict(page_size=8, prefill_chunk=16), "chunked refill prefill"),
     (dict(prefill_chunk=16), "chunked refill prefill"),
     (dict(tree_width=2), "tree speculation"),
 ])
@@ -86,14 +87,13 @@ def test_engine_unported_paths_raise(kw, item):
 @pytest.mark.parametrize("cls,kw", [
     ("ServingConfig", dict(preempt="deadline")),
     ("ServingConfig", dict(shed="expired")),
-    ("ServingConfig", dict(num_pages=64)),
+    ("ServingConfig", dict(shed_queue_depth=64)),
     ("ServingConfig", dict(seed=5)),
     ("ServingPolicy", dict(preemption=object())),
 ])
 def test_overload_and_paging_knobs_are_not_accepted(cls, kw):
-    """Preemption, shedding, page-pool sizing and sampling seeds have no
-    path in the port yet, so their knobs do not exist (rather than being
-    ignored)."""
+    """Preemption, shedding and sampling seeds have no path in the port
+    yet, so their knobs do not exist (rather than being ignored)."""
     from repro_torch.serving import policy
     with pytest.raises(TypeError):
         getattr(policy, cls)(**kw)

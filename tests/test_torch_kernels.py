@@ -1,7 +1,9 @@
-"""The port's three kernels: each plain version against the JAX Pallas
+"""The port's kernels: each plain version against the JAX Pallas
 kernel (interpret mode on the CPU) and against the JAX model's masked
 attention, the CPU dispatch of each wrapper, and -- on a CUDA card only
--- each CUDA kernel against its plain version.
+-- each CUDA kernel against its plain version, and each paged kernel
+bit for bit against the dense kernel on the gathered view.  The paged
+plain versions are held to JAX in tests/test_torch_paging.py.
 
 Tolerances as in tests/test_kernels.py: fp32 rtol/atol 2e-5, bf16 2e-2;
 extract_pack is a copy and is held exactly.  The JAX half imports JAX
@@ -11,12 +13,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.paging import gather_view  # noqa: E402
 from repro_torch.kernels.extract_pack.ops import pack_signals  # noqa: E402
 from repro_torch.kernels.extract_pack.ref import extract_pack_ref  # noqa: E402
-from repro_torch.kernels.flash_attn.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
-from repro_torch.kernels.verify_attn.ops import verify_attention  # noqa: E402
-from repro_torch.kernels.verify_attn.ref import verify_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
+    flash_attention, flash_attention_paged)
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    flash_attention_paged_ref, flash_attention_ref)
+from repro_torch.kernels.verify_attn.ops import (  # noqa: E402
+    verify_attention, verify_attention_paged)
+from repro_torch.kernels.verify_attn.ref import (  # noqa: E402
+    verify_attention_paged_ref, verify_attention_ref)
 
 DTYPES = ["float32", "bfloat16"]
 FLASH_SHAPES = [(1, 128, 2, 1, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -276,3 +283,115 @@ def test_cuda_pack_vs_plain_exact(cuda, b, t, f, p, dtype):
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert torch.equal(a, w)
+
+
+# ------------------------------------------ paged CUDA kernels (card only)
+# (b, t, hq, hk, d, page, n_tbl, window); t = 0 marks the prefill kernel
+PAGED_SHAPES = [(2, 4, 4, 2, 64, 16, 8, 0), (3, 1, 8, 2, 64, 8, 16, 0),
+                (2, 4, 4, 2, 32, 12, 10, 0), (2, 8, 4, 2, 64, 16, 8, 24),
+                (8, 4, 32, 2, 128, 16, 64, 0), (8, 1, 32, 2, 128, 16, 64, 0),
+                (8, 511, 32, 2, 128, 16, 64, 0)]
+FLASH_PAGED_SHAPES = [(2, 64, 4, 2, 64, 16, 0), (3, 100, 8, 2, 64, 12, 0),
+                      (2, 40, 4, 2, 32, 8, 16), (8, 512, 32, 2, 128, 16, 0)]
+
+
+def _paged_case(b, hk, d, page, n_tbl, dtype, dev, seed, need):
+    """Pools with every table row a shuffled, non-contiguous page list;
+    lanes 0 and 1 share their first page; entries past ``need[b]`` pages
+    point at the trash page (the last one)."""
+    g = np.random.default_rng(seed)
+    n_pages = b * n_tbl
+    k_pool = _randn((n_pages + 1, page, hk, d), dtype, dev, seed)
+    v_pool = _randn((n_pages + 1, page, hk, d), dtype, dev, seed + 1)
+    perm = g.permutation(n_pages)
+    tbl = np.full((b, n_tbl), n_pages, np.int32)
+    for lane in range(b):
+        tbl[lane, :need[lane]] = perm[lane * n_tbl:lane * n_tbl + need[lane]]
+    if b > 1:
+        tbl[1, 0] = tbl[0, 0]
+    return k_pool, v_pool, torch.tensor(tbl, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,hq,hk,d,page,n_tbl,window", PAGED_SHAPES)
+def test_cuda_verify_paged_vs_plain_and_dense(cuda, b, t, hq, hk, d, page,
+                                               n_tbl, window, dtype):
+    smax = page * n_tbl
+    g = np.random.default_rng(21)
+    lengths = g.integers(0, smax - t + 1, size=(b,)).astype(np.int32)
+    pad = np.minimum(g.integers(0, smax // 4, size=(b,)), lengths)
+    need = [-(-int(n + t) // page) for n in lengths]
+    k_pool, v_pool, tbl = _paged_case(b, hk, d, page, n_tbl, dtype, cuda,
+                                      31, need)
+    q = _randn((b, t, hq, d), dtype, cuda, 33)
+    ln = torch.tensor(lengths, device=cuda)
+    pd = torch.tensor(pad, dtype=torch.int32, device=cuda)
+    n0 = verify_attention_paged.launches
+    got = verify_attention_paged(q, k_pool, v_pool, tbl, ln, pd,
+                                 window=window)
+    dense = verify_attention(q, gather_view(k_pool, tbl),
+                             gather_view(v_pool, tbl), ln, pd, window=window)
+    want = verify_attention_paged_ref(q, k_pool, v_pool, tbl, ln, pd,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert verify_attention_paged.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, dense), "paged != dense kernel on the view"
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol(dtype))
+    # the trash page and every page past lengths + t are never read
+    k_pool[-1] = float("nan")
+    v_pool[-1] = float("nan")
+    again = verify_attention_paged(q, k_pool, v_pool, tbl, ln, pd,
+                                   window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hk,d,page,window", FLASH_PAGED_SHAPES)
+def test_cuda_flash_paged_vs_plain_and_dense(cuda, b, s, hq, hk, d, page,
+                                             window, dtype):
+    n_tbl = -(-s // page) + 2
+    need = [-(-s // page)] * b
+    k_pool, v_pool, tbl = _paged_case(b, hk, d, page, n_tbl, dtype, cuda,
+                                      41, need)
+    q = _randn((b, s, hq, d), dtype, cuda, 43)
+    pad = (torch.arange(b, device=cuda, dtype=torch.int32) * 7) % s
+    n0 = flash_attention_paged.launches
+    got = flash_attention_paged(q, k_pool, v_pool, tbl, pad, window=window)
+    dense = flash_attention(q, gather_view(k_pool, tbl)[:, :s].contiguous(),
+                            gather_view(v_pool, tbl)[:, :s].contiguous(), pad,
+                            window=window)
+    want = flash_attention_paged_ref(q, k_pool, v_pool, tbl, pad,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_paged.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, dense), "paged != dense kernel on the view"
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol(dtype))
+    k_pool[-1] = float("nan")
+    v_pool[-1] = float("nan")
+    again = flash_attention_paged(q, k_pool, v_pool, tbl, pad, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_refuses_dense_cache(cuda):
+    """A layer-stacked pool leaf or a table of the wrong batch raises
+    before any launch."""
+    q = _randn((2, 4, 4, 64), "bfloat16", cuda, 1)
+    pool = _randn((3, 9, 16, 2, 64), "bfloat16", cuda, 2)
+    tbl = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    ln = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        verify_attention_paged(q, pool, pool, tbl, ln)
+    with pytest.raises(ValueError):
+        verify_attention_paged(q, pool[0], pool[0], tbl[:1], ln)
+    with pytest.raises(ValueError):
+        flash_attention_paged(_randn((2, 100, 4, 64), "bfloat16", cuda, 3),
+                              pool[0], pool[0], tbl)
