@@ -17,10 +17,17 @@ Phases, one JSON line each:
            shuffled tables, lanes 0-3 sharing their first 8 pages) are
            also held bit for bit (torch.equal) against the dense kernel
            on the gathered view; their library yardstick is two calls,
-           the pool[tbl] gather and scaled_dot_product_attention.
+           the pool[tbl] gather and scaled_dot_product_attention.  The
+           verify kernels' tree mode (W = 4, gamma = 3, T = 13), dense
+           and paged, against its plain version; W = 1 bit for bit
+           against the chain kernel, paged bit for bit against dense on
+           the gathered view, also in a window > 0 sweep at a small
+           width; yardstick SDPA with the explicit tree mask.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
-           streams, dense and paged (page 16), and the card's prefill
+           streams, dense and paged (page 16), tree speculation at
+           W = 2 gives equal streams stepwise, in supersteps (K 8), as a
+           stream (K 8 and 3) and in waves, and the card's prefill
            logits agree with the CPU's.
   serve    glm4-9b at full width and depth, random bf16 weights from a
            seeded generator: ServingEngine (batch 8, max_len 1024,
@@ -36,10 +43,18 @@ Phases, one JSON line each:
            admission guard defers; every request must finish, the peak
            must stay within the pool, every paged kernel must launch).
            The allocator is clean at drain in both.
-  profile  torch.profiler over a short serve on the dense and the paged
-           engine: device busy share, device time by kernel class, and
-           the host-blocking CUDA calls (synchronizations, pageable
-           host-to-device copies) of each; the paged serve adds none.
+  tree_serve  the serve's configuration, weights and requests with
+           tree speculation, W = 1 (streams, supersteps and host syncs
+           must equal the chain serve's) and W = 4 (tokens/s, superstep
+           ms, host syncs per superstep no more than the chain's, the
+           streams that differ from the chain's and the top-2 logit gap
+           at the first flip); each target verify must be one tree-mode
+           launch per layer.
+  profile  torch.profiler over a short serve on the dense, the paged and
+           the two tree engines: device busy share, device time by
+           kernel class, and the host-blocking CUDA calls
+           (synchronizations, pageable host-to-device copies) of each;
+           the paged and tree serves add none.
 
 Then the kernel table (``{"kernels": [...]}``), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -66,7 +81,7 @@ BF16_TOL = 2e-2                  # per element, as tests/test_kernels.py
 # shapes below), so a systematic error above 0.1 % fails
 REL_L2_TOL = 1e-3
 GLM = dict(B=8, S=512, SMAX=1024, HQ=32, HK=2, D=128, F=3 * 4096, GAMMA=3,
-           P=16)
+           P=16, TREE_W=4)
 
 
 def emit(obj):
@@ -338,6 +353,8 @@ def phase_kernels():
         library="pool[tbl] gather + scaled_dot_product_attention (2 calls)",
         shape=f"q {tuple(q.shape)} pools {tuple(kpool.shape)} bf16, pad>0"))
 
+    rows += _tree_rows(rnd, kc, vc, pad, kpool, vpool, table)
+
     # ---- extract_pack (exact)
     F_ = GLM["F"]
     T4 = GLM["GAMMA"] + 1
@@ -363,6 +380,130 @@ def phase_kernels():
         shape=f"feats {tuple(feats.shape)} bf16"))
     emit({"phase": "kernels", "kernels": rows})
     return rows
+
+
+def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
+    """The verify kernels' tree mode (the target verify of a tree round):
+    W = 4 branches of depth 3, T = 13 rows, at the verify shapes above,
+    dense and paged (on the paged section's shuffled pools), against the
+    plain version; W = 1 bit for bit against the chain kernel and the
+    paged tree bit for bit against the dense tree on the gathered view.
+    Then a window > 0 sweep at a small width.  The library yardstick is
+    scaled_dot_product_attention with the explicit tree mask."""
+    from repro_torch.core.paging import gather_view
+    from repro_torch.kernels.verify_attn.ops import (verify_attention,
+                                                     verify_attention_paged)
+    from repro_torch.kernels.verify_attn.ref import (
+        tree_mask, verify_attention_tree_paged_ref, verify_attention_tree_ref)
+    dev = kc.device
+    B, SMAX, HQ, HK, D, P = (GLM[k] for k in ("B", "SMAX", "HQ", "HK", "D",
+                                              "P"))
+    W, G = GLM["TREE_W"], GLM["GAMMA"]
+    T = W * G + 1
+    ln = torch.tensor([600, 517, 812, 1000, 64, 256, 700, 333],
+                      dtype=torch.int32, device=dev)
+    pd = torch.minimum(pad, ln)
+    qt = rnd(B, T, HQ, D)
+    tmask = tree_mask(ln, (W, G), SMAX, pd)
+    nvis = tmask.sum().item() * HQ
+    span = (torch.clamp(ln + T, max=SMAX) - pd).clamp(min=0).sum().item()
+    kv_bytes = 2 * 2 * span * HK * D
+    b_ms, b_by = bound(2 * 2 * qt.numel() + kv_bytes + 8 * B, 4.0 * nvis * D)
+
+    o = verify_attention(qt, kc, vc, ln, pd, tree=(W, G))
+    r = verify_attention_tree_ref(qt, kc, vc, ln, pd, tree=(W, G))
+    q1 = qt[:, :G + 1].contiguous()
+    one = verify_attention(q1, kc, vc, ln, pd, tree=(1, G))
+    chain = verify_attention(q1, kc, vc, ln, pd)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all(), "tree verify wrote non-finite"
+    assert torch.equal(one, chain), "tree W=1 != chain kernel"
+    err, rel = hold(o, r, "verify_attention tree")
+    dense_row = dict(
+        name="verify_attention_tree", route="cuda",
+        source="src/repro_torch/csrc/verify_attn.cu (attn_rows.cuh tree mode)",
+        replaces="src/repro/kernels/verify_attn/kernel.py:27",
+        max_abs_err=err, rel_l2_err=rel, w1_equal_chain=True,
+        ms=cuda_ms(lambda: verify_attention(qt, kc, vc, ln, pd,
+                                            tree=(W, G))),
+        plain_ms=cuda_ms(lambda: verify_attention_tree_ref(
+            qt, kc, vc, ln, pd, tree=(W, G)), iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: _sdpa(qt, kc, vc, tmask)),
+        shape=f"tree=({W},{G}) q {tuple(qt.shape)} cache {tuple(kc.shape)} "
+              "bf16")
+
+    need = torch.clamp(-(-(ln + T) // P), max=SMAX // P)
+    tb = table(need)
+    pages = (need - pd // P).clamp(min=0).sum().item()
+    po = verify_attention_paged(qt, kpool, vpool, tb, ln, pd, tree=(W, G))
+    pr = verify_attention_tree_paged_ref(qt, kpool, vpool, tb, ln, pd,
+                                         tree=(W, G))
+    kv_k, kv_v = gather_view(kpool, tb), gather_view(vpool, tb)
+    pdense = verify_attention(qt, kv_k, kv_v, ln, pd, tree=(W, G))
+    torch.cuda.synchronize()
+    assert torch.isfinite(po).all(), "paged tree verify wrote non-finite"
+    assert torch.equal(po, pdense), "paged tree != dense tree on the view"
+    perr, prel = hold(po, pr, "verify_attention_paged tree")
+    pb_ms, pb_by = bound(2 * 2 * qt.numel() + kv_bytes + 4 * pages + 8 * B,
+                         4.0 * nvis * D)
+    paged_row = dict(
+        name="verify_attention_paged_tree", route="cuda",
+        source="src/repro_torch/csrc/verify_attn_paged.cu "
+               "(attn_rows.cuh tree mode)",
+        replaces="src/repro/kernels/verify_attn/kernel.py:134",
+        max_abs_err=perr, rel_l2_err=prel, equal_dense=True,
+        ms=cuda_ms(lambda: verify_attention_paged(qt, kpool, vpool, tb, ln,
+                                                  pd, tree=(W, G))),
+        plain_ms=cuda_ms(lambda: verify_attention_tree_paged_ref(
+            qt, kpool, vpool, tb, ln, pd, tree=(W, G)), iters=5),
+        bound_ms=pb_ms, bound_by=pb_by,
+        library_ms=cuda_ms(lambda: _sdpa(qt, gather_view(kpool, tb),
+                                         gather_view(vpool, tb), tmask)),
+        library="pool[tbl] gather + scaled_dot_product_attention (2 calls)",
+        main_path="none in this slice (the paged tree engine path is queued)",
+        shape=f"tree=({W},{G}) q {tuple(qt.shape)} pools "
+              f"{tuple(kpool.shape)} bf16")
+
+    # window > 0 at a small width (glm4-9b has no window): the tree
+    # window compares logical positions, so its lower key bound is not
+    # the chain's
+    g = torch.Generator(device=dev).manual_seed(7)
+    sweep = []
+    for w, gam, window in ((2, 4, 6), (4, 2, 5), (4, 3, 8), (1, 3, 4)):
+        t = w * gam + 1
+        b, hq, hk, d, smax, pg = 4, 8, 2, 64, 256, 16
+        q = torch.randn((b, t, hq, d), generator=g, device=dev).to(kc.dtype)
+        k = torch.randn((b, smax, hk, d), generator=g, device=dev).to(kc.dtype)
+        v = torch.randn((b, smax, hk, d), generator=g, device=dev).to(kc.dtype)
+        lw = torch.tensor([20, 100, 200, smax - 2], dtype=torch.int32,
+                          device=dev)
+        pw = torch.tensor([3, 0, 150, 40], dtype=torch.int32, device=dev)
+        ow = verify_attention(q, k, v, lw, pw, window=window, tree=(w, gam))
+        rw = verify_attention_tree_ref(q, k, v, lw, pw, window=window,
+                                       tree=(w, gam))
+        tbl = torch.randperm(b * smax // pg, generator=g, device=dev).to(
+            torch.int32).reshape(b, smax // pg)
+        kp = torch.zeros((b * smax // pg + 1, pg, hk, d), dtype=k.dtype,
+                         device=dev)
+        vp = torch.zeros_like(kp)
+        kp[tbl.long()] = k.reshape(b, smax // pg, pg, hk, d)
+        vp[tbl.long()] = v.reshape(b, smax // pg, pg, hk, d)
+        opw = verify_attention_paged(q, kp, vp, tbl, lw, pw, window=window,
+                                     tree=(w, gam))
+        torch.cuda.synchronize()
+        assert torch.equal(opw, ow), f"paged tree != dense, window {window}"
+        e, rl = hold(ow, rw, f"tree=({w},{gam}) window={window}")
+        case = dict(tree=[w, gam], window=window, max_abs_err=e,
+                    rel_l2_err=rl, paged_equal_dense=True)
+        if w == 1:
+            assert torch.equal(ow, verify_attention(q, k, v, lw, pw,
+                                                    window=window)), \
+                f"tree W=1 != chain kernel, window {window}"
+            case["w1_equal_chain"] = True
+        sweep.append(case)
+    dense_row["window_sweep"] = sweep
+    return [dense_row, paged_row]
 
 
 # ------------------------------------------------------ model helpers
@@ -408,6 +549,26 @@ def phase_ladder():
         eng.allocator.assert_clean()
     assert paged[8] == streams[8], "paged stream != dense stream"
     assert paged[0] == paged[8], "paged stepwise != paged superstep"
+    # tree speculation, W = 2: stepwise == superstep (waves of 4) ==
+    # stream (K 8 and 3)
+    tree = {}
+    for mode, k in (("wave", 0), ("wave", 8), ("stream", 8), ("stream", 3)):
+        conf = ServingConfig(batch_size=4, max_len=256, gamma=3,
+                             superstep_rounds=k, tree_width=2)
+        eng = ServingEngine(cfg, params, dcfg, dparams, config=conf,
+                            device=dev)
+        reqs = _requests(np.random.default_rng(3), 8, 16, 128, 24,
+                         cfg.vocab_size)
+        if mode == "wave":
+            eng.serve_wave(reqs[:4])
+            eng.serve_wave(reqs[4:])
+        else:
+            eng.serve_stream(iter(reqs))
+        tree[(mode, k)] = [list(r.generated) for r in reqs]
+        assert all(len(s_) == 24 for s_ in tree[(mode, k)])
+    ref = tree[("wave", 0)]
+    assert all(v == ref for v in tree.values()), \
+        "tree W=2: stepwise / superstep / stream / wave streams differ"
     # the card's prefill against the CPU's (plain kernels) on one prompt
     toks = torch.tensor([np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=48).tolist()], dtype=torch.int32)
@@ -421,6 +582,9 @@ def phase_ladder():
     assert rel < 2e-2, f"card vs CPU prefill logits rel err {rel}"
     emit({"phase": "ladder", "layers": 2, "requests": 8, "new_tokens": 24,
           "streams_equal": True, "paged_streams_equal": True,
+          "tree2_stepwise_superstep_stream_wave_equal": True,
+          "tree2_requests_equal_chain": sum(
+              a == b for a, b in zip(ref, streams[8])),
           "prefill_logits_rel_err_vs_cpu": rel,
           "argmax_equal": bool(gpu.argmax() == cpu.argmax())})
     del params, dparams
@@ -475,9 +639,13 @@ def _timed_serve(eng, reqs):
     torch.cuda.reset_peak_memory_stats()
     for fn in fns.values():
         fn.launches = 0
+        if hasattr(fn, "tree_launches"):
+            fn.tree_launches = 0
     eng.serve_stream(iter(reqs))
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in fns.items()}
+    for name in ("verify_attention", "verify_attention_paged"):
+        launches[name + "_tree"] = fns[name].tree_launches
     assert all(len(r.generated) == 64 and r.finish_t is not None
                for r in reqs), "a request did not finish with its tokens"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
@@ -497,6 +665,7 @@ def _timed_serve(eng, reqs):
         "mean_accept_len": st.accept_len,
         "host_syncs": eng.host_syncs,
         "host_syncs_per_superstep": eng.host_syncs / max(st.dispatches, 1),
+        "tree_width": eng.tree_width,
         "signal_windows": eng.extractor.store.total_added,
         "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches}
@@ -581,6 +750,76 @@ def phase_paged_serve(dense_eng, dense, dense_streams):
     return out["half"]
 
 
+def phase_tree_serve(dense_eng, dense, dense_streams):
+    """Greedy tree speculation on the serve phase's engine configuration,
+    weights and requests (glm4-9b at full width and depth), W = 1 and
+    W = 4.  W = 1 must be the chain serve exactly: streams, supersteps
+    and host syncs.  W = 4 commits the target's greedy tokens like the
+    chain, but its verify scores 13 rows where the chain scores 4, so
+    bf16 products round differently and a near-tie of the top-2 logits
+    can flip; the phase reports how many streams differ and the gap at
+    the first flip.  Random weights: the draft's proposals are (almost)
+    never accepted, so the mean accepted length is about 1.0 and the
+    winning branch is 0.  Returns {W: (launches, engine)}."""
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    out = {}
+    for width in (1, GLM["TREE_W"]):
+        conf = ServingConfig(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
+                             superstep_rounds=8, tree_width=width)
+        eng = ServingEngine(dense_eng.cfg, dense_eng.params, dense_eng.dcfg,
+                            dense_eng.dparams, config=conf,
+                            device=dense_eng.device,
+                            extractor=SignalExtractor(SignalStore()))
+        reqs = _serve_requests(eng.cfg.vocab_size)
+        summary, launches = _timed_serve(eng, reqs)
+        st = eng.stats
+        streams = [list(r.generated) for r in reqs]
+        n_layers = eng.cfg.num_layers
+        # every target verify of a speculative round is one tree-mode
+        # launch per layer; plain rounds and draft calls use the chain
+        assert launches["verify_attention_tree"] == n_layers * st.spec_steps, \
+            (launches, st.spec_steps)
+        assert launches["verify_attention_paged"] == 0, launches
+        for k in ("flash_attention", "verify_attention", "extract_pack"):
+            assert launches[k] > 0, launches
+        diff = [i for i, (a, b) in enumerate(zip(streams, dense_streams))
+                if a != b]
+        row = {"phase": "tree_serve", "tree_width": width, **summary,
+               "streams_differing_from_chain": len(diff),
+               "host_syncs_per_superstep_chain":
+                   dense["host_syncs_per_superstep"],
+               "tokens_per_s_chain": dense["tokens_per_s"],
+               "superstep_ms_median_chain": dense["superstep_ms_median"],
+               "note": "random weights: mean accepted length ~1.0",
+               "nvidia_smi": smi()}
+        if width == 1:
+            assert streams == dense_streams, "tree W=1 streams != chain"
+            assert st.dispatches == dense["supersteps"]
+            assert eng.host_syncs == dense["host_syncs"], \
+                (eng.host_syncs, dense["host_syncs"])
+        else:
+            assert summary["host_syncs_per_superstep"] <= \
+                dense["host_syncs_per_superstep"], "tree serve syncs more"
+            if diff:
+                # the target's top-2 gap at the first flipped token: one
+                # prefill of prompt + the common prefix
+                i = diff[0]
+                a, b = streams[i], dense_streams[i]
+                j = next(n for n in range(len(a)) if a[n] != b[n])
+                seq = torch.tensor([reqs[i].prompt + b[:j]], dtype=torch.int32,
+                                   device=eng.device)
+                top = T.prefill(eng.cfg, eng.params, seq)["logits"][0] \
+                    .topk(2).values
+                row["first_flip"] = {"request": i, "step": j,
+                                     "top2_logit_gap": float(top[0] - top[1])}
+        out[width] = (launches, eng)
+        emit(row)
+    return out
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_rows" in n:
@@ -652,17 +891,24 @@ def main():
     paged_launches, paged_eng = phase_paged_serve(eng, dense, dense_streams)
     for name in ("verify_attention_paged", "flash_attention_paged"):
         launches[name] = paged_launches[name]
+    trees = phase_tree_serve(eng, dense, dense_streams)
+    launches["verify_attention_tree"] = \
+        trees[GLM["TREE_W"]][0]["verify_attention_tree"]
     blocking = phase_profile(eng, "dense")
-    blocking_paged = phase_profile(paged_eng, "paged")
-    assert all(n <= blocking.get(k, 0) for k, n in blocking_paged.items()), \
-        f"paged serve blocks the host more: {blocking_paged} vs {blocking}"
-    del eng, paged_eng
+    for name, other in (("paged", paged_eng),
+                        *((f"tree W={w}", e) for w, (_, e) in trees.items())):
+        more = phase_profile(other, name)
+        assert all(n <= blocking.get(k, 0) for k, n in more.items()), \
+            f"{name} serve blocks the host more: {more} vs {blocking}"
+    del eng, paged_eng, trees
+    # the paged tree mode is held above at kernel level only: no main
+    # path of this slice runs it, so it has no launch count to report
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = None if "main_path" in row else launches[row["name"]]
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for row in rows]})
+        for row in rows if row["launches"] is not None]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

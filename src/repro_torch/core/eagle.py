@@ -1,4 +1,5 @@
-"""EAGLE-3 draft model, chain drafting (port of ``repro/core/eagle.py``).
+"""EAGLE-3 draft model, chain and tree drafting (port of
+``repro/core/eagle.py``).
 
 One decoder layer + LM head over the target's concatenated low/mid/high
 capture features (3·D, fused to D) and the embedding of the most recent
@@ -27,6 +28,8 @@ from repro_torch.models.layers import (EMBED, MLP, embed, ffn, ffn_specs,
                                        rmsnorm, rmsnorm_specs)
 from repro_torch.models.param import (ParamSpec, ParamTree, count_params,
                                       init_params)
+
+NEG_INF = -1e30          # the reference's masked-logit value
 
 
 def draft_config(tcfg: ModelConfig) -> ModelConfig:
@@ -188,6 +191,40 @@ def draft_propose(dcfg: ModelConfig, dparams, embed_params, dcache, h_last,
         logitss.append(logits)
         h, logits = h_new, logits_new
     return torch.stack(toks, dim=1), torch.stack(logitss, dim=1), cache
+
+
+def draft_propose_tree(dcfg: ModelConfig, dparams, embed_params, dcache,
+                       h_last, first_logits, gamma: int, width: int, *,
+                       greedy: bool = True):
+    """Draft a token tree: ``width`` chains of depth γ sharing the root.
+
+    Branch 0 is the ``draft_propose`` chain verbatim (width 1 is the
+    chain).  Branch r >= 1 re-proposes greedily from the same
+    post-extend cache with the depth-1 tokens of the branches before it
+    masked to -1e30, so sibling roots are distinct.  Every branch writes
+    its propose K/V at the same slots [lengths, lengths + γ), in place;
+    each step reads only slots its own branch wrote, and the next
+    ``draft_extend`` rewrites them all before any read.  (In JAX the
+    returned cache holds branch 0's rows there; here the last branch's.)
+
+    Returns (tokens (B, width, γ), logits (B, width, γ, V), dcache')
+    with dcache' branch 0's cache (lengths advanced by γ)."""
+    if not greedy:
+        raise NotImplementedError("sampled drafting is not ported yet "
+                                  "(ROADMAP queue 1: sampled decoding)")
+    masked = first_logits
+    toks_all, logits_all, cache0 = [], [], None
+    for r in range(width):
+        toks, logitss, cache = draft_propose(
+            dcfg, dparams, embed_params, dcache, h_last, masked, gamma)
+        if r == 0:
+            cache0 = cache
+        if r + 1 < width:
+            # a scalar scatter: no host-to-device copy of the value
+            masked = masked.scatter(1, toks[:, :1].long(), NEG_INF)
+        toks_all.append(toks)
+        logits_all.append(logitss)
+    return torch.stack(toks_all, dim=1), torch.stack(logits_all, dim=1), cache0
 
 
 def reset_propose(dcache, gamma: int):

@@ -1,7 +1,9 @@
-"""Speculative decoding, greedy chain (port of ``repro/core/speculative.py``).
+"""Speculative decoding, greedy chain or draft tree (port of
+``repro/core/speculative.py``).
 
 Draft-propose + target-verify + exact-match acceptance, the fused
-``spec_decode_step`` of the serving engine, and ``decode_superstep``: K
+``spec_decode_step`` of the serving engine, its draft-tree twin
+``tree_decode_step`` (dense caches), and ``decode_superstep``: K
 rounds with the Eq. 5 speculate-vs-plain gate, on-device token commit,
 EOS/budget masks, the acceptance EMA and per-round signal packing.
 
@@ -48,6 +50,78 @@ def verify_greedy(target_logits, draft_tokens):
     return n_acc, bonus
 
 
+# ------------------------------------------------------ tree verification
+def tree_path_slots(sel, gamma: int):
+    """Block slots of the accepted root path: position 0 is the root
+    (slot 0), position j >= 1 branch ``sel``'s depth-j node at slot
+    1 + sel·γ + (j-1).  sel: (B,).  Returns (B, γ+1) int64."""
+    j = torch.arange(gamma + 1, device=sel.device)[None, :]
+    return torch.where(j == 0, 0, 1 + sel.long()[:, None] * gamma + (j - 1))
+
+
+def verify_tree_greedy(target_logits, draft_tokens):
+    """Greedy tree acceptance: each branch's exact-match prefix under the
+    tree-scored logits; the longest root path wins.
+
+    target_logits: (B, W·γ + 1, V) from the tree-masked verify;
+    draft_tokens: (B, W, γ).  Returns (n_acc, sel, bonus), (B,) int32.
+    Where branches tie (none matching included) the lowest branch wins,
+    as JAX's argmax picks it.  Width 1 is ``verify_greedy``."""
+    b, w, gamma = draft_tokens.shape
+    dev = target_logits.device
+    # parent slot of node (r, j): the root for j = 1, else (r, j - 1)
+    r = torch.arange(w, device=dev)[:, None]
+    pslots = torch.cat([torch.zeros((w, 1), dtype=torch.long, device=dev),
+                        1 + r * gamma + torch.arange(max(gamma - 1, 0),
+                                                     device=dev)[None, :]],
+                       dim=1)                                   # (w, γ)
+    am = target_logits.argmax(-1).to(torch.int32)               # (B, T)
+    tgt = am[:, pslots.reshape(-1)].reshape(b, w, gamma)
+    match = (tgt == draft_tokens).to(torch.int32)
+    n_branch = match.cumprod(dim=2).sum(dim=2)                  # (B, w)
+    n_acc = n_branch.max(dim=1).values.to(torch.int32)
+    sel = n_branch.argmax(dim=1).to(torch.int32)
+    last_slot = torch.where(n_acc == 0, 0, 1 + sel * gamma + (n_acc - 1))
+    bonus = _take(am, last_slot)
+    return n_acc, sel, bonus
+
+
+def compact_tree_cache(cache, sel, gamma: int):
+    """Move the accepted branch's K/V rows into chain order, in place,
+    before ``commit_cache``: the tree verify wrote W·γ + 1 rows at
+    lengths + [0..T); the path's rows (slots 1 + sel·γ + [0..γ)) go to
+    positions lengths + [1..γ], after which the cache is a chain verify
+    block.  sel == 0 is a same-position copy (width 1 keeps every byte).
+
+    Out-of-range positions (an inactive or finished lane near max_len)
+    follow JAX: reads clamp to the last position, writes past it are
+    dropped (rewritten with the value already there, as ``scatter_kv``
+    does).  Dense caches only: the paged branch, through the block
+    table, is ROADMAP queue 1 (paged tree speculation)."""
+    if "page_tbl" in cache:
+        raise NotImplementedError("compact_tree_cache through a block "
+                                  "table is not ported yet (ROADMAP queue "
+                                  "1: paged tree speculation)")
+    lengths = cache["lengths"].long()
+    dev = lengths.device
+    j = torch.arange(gamma, device=dev)[None, :]
+    src = lengths[:, None] + 1 + sel.long()[:, None] * gamma + j   # (B, γ)
+    dst = lengths[:, None] + 1 + j
+    bidx = torch.arange(lengths.shape[0], device=dev)[:, None]
+    for name, group in cache.items():
+        if name in ("lengths", "pad"):
+            continue
+        for entry in group.values():
+            for leaf in entry.values():                 # (L, B, Smax, ...)
+                smax = leaf.shape[2]
+                rows = leaf[:, bidx, src.clamp(max=smax - 1)]
+                keep = (dst < smax)[None, :, :, None, None]
+                pos = dst % smax
+                leaf[:, bidx, pos] = torch.where(keep, rows,
+                                                 leaf[:, bidx, pos])
+    return cache
+
+
 # --------------------------------------------------------------- carry
 class SpecCarry(NamedTuple):
     """Pending (feature, token) pairs the draft must ingest next round:
@@ -92,6 +166,22 @@ def _require_greedy(greedy: bool):
                                   "verify_sample with per-lane keys)")
 
 
+def _commit_tokens(draft_tokens, n_acc, bonus):
+    """A round's commit from its accepted path's drafts (B, γ): tokens
+    [d1..d_n_acc, bonus, 0...] (B, γ+1) int32, n_commit = n_acc + 1 and
+    the accept mask."""
+    gamma = draft_tokens.shape[1]
+    n_commit = n_acc + 1
+    idx = torch.arange(gamma + 1, device=draft_tokens.device)[None, :]
+    accept_mask = idx < n_commit[:, None]
+    padded = torch.cat([draft_tokens, torch.zeros_like(draft_tokens[:, :1])],
+                       dim=1)
+    committed = torch.where(idx < n_acc[:, None], padded, bonus[:, None])
+    committed = torch.where(accept_mask, committed,
+                            torch.zeros_like(committed)).to(torch.int32)
+    return committed, n_commit, accept_mask
+
+
 # ------------------------------------------------------------ fused step
 def spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                      cache, dcache, carry: SpecCarry, *, gamma: int = 3,
@@ -118,23 +208,65 @@ def spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
     tl = out["logits"]
 
     n_acc, bonus = verify_greedy(tl, draft_tokens)
-    n_commit = n_acc + 1
+    committed, n_commit, accept_mask = _commit_tokens(draft_tokens, n_acc,
+                                                      bonus)
     cache = T.commit_cache(cfg, out["cache"], n_commit)
     dcache = eagle.reset_propose(dcache, gamma)
-
-    idx = torch.arange(gamma + 1, device=tl.device)[None, :]
-    accept_mask = idx < n_commit[:, None]
-    padded = torch.cat([draft_tokens, torch.zeros_like(draft_tokens[:, :1])],
-                       dim=1)
-    committed = torch.where(idx < n_acc[:, None], padded, bonus[:, None])
-    committed = torch.where(accept_mask, committed,
-                            torch.zeros_like(committed)).to(torch.int32)
     caps = out["captures"]
     carry = SpecCarry(caps, committed, n_commit)
     return {"tokens": committed, "n_commit": n_commit, "cache": cache,
             "dcache": dcache, "carry": carry, "captures": caps,
             "accept_mask": accept_mask, "n_acc": n_acc, "block": block,
             "target_logits": tl}
+
+
+def tree_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
+                     cache, dcache, carry: SpecCarry, *, gamma: int = 3,
+                     width: int = 1, greedy: bool = True):
+    """One speculative round over a draft token tree: the contract of
+    ``spec_decode_step`` (carry and telemetry are γ+1 wide), but the
+    draft proposes ``width`` sibling chains, the target scores them all
+    in one tree-masked verify (T = width·γ + 1 rows), the longest
+    accepted root path wins, and only its K/V rows are compacted into
+    chain order and committed.  Captures and carry hold the path only.
+    Width 1 is ``spec_decode_step`` bit for bit.
+
+    Returns the ``spec_decode_step`` dict plus ``sel`` (the winning
+    branch); ``block`` is the flattened tree (B, T) and
+    ``target_logits`` the path's (B, γ+1, V) rows."""
+    _require_greedy(greedy)
+    b = carry.tokens.shape[0]
+    ext_logits, ext_h, dcache = eagle.draft_extend(
+        dcfg, dparams, tparams["embed"], dcache, carry.feats, carry.tokens,
+        carry.advance)
+    last = carry.advance - 1
+    h_last = _take(ext_h, last)
+    first_logits = _take(ext_logits, last)
+
+    toks_tree, _, dcache = eagle.draft_propose_tree(
+        dcfg, dparams, tparams["embed"], dcache, h_last, first_logits, gamma,
+        width)
+
+    t0 = _take(carry.tokens, last)[:, None]
+    block = torch.cat([t0, toks_tree.reshape(b, width * gamma)], dim=1)
+    out = T.decode_step(cfg, tparams, cache, block, tree=(width, gamma))
+    tl = out["logits"]
+
+    n_acc, sel, bonus = verify_tree_greedy(tl, toks_tree)
+    committed, n_commit, accept_mask = _commit_tokens(
+        _take(toks_tree, sel), n_acc, bonus)
+    cache = T.commit_cache(cfg, compact_tree_cache(out["cache"], sel, gamma),
+                           n_commit)
+    dcache = eagle.reset_propose(dcache, gamma)
+
+    path = tree_path_slots(sel, gamma)                          # (B, γ+1)
+    bidx = torch.arange(b, device=tl.device)[:, None]
+    caps = out["captures"][bidx, path]
+    carry = SpecCarry(caps, committed, n_commit)
+    return {"tokens": committed, "n_commit": n_commit, "cache": cache,
+            "dcache": dcache, "carry": carry, "captures": caps,
+            "accept_mask": accept_mask, "n_acc": n_acc, "sel": sel,
+            "block": block, "target_logits": tl[bidx, path]}
 
 
 def plain_step_from_carry(cfg: ModelConfig, tparams, cache,
@@ -279,12 +411,14 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                      threshold_table=None, *, rounds: int = 8,
                      gamma: int = 3, greedy: bool = True,
                      ema_decay: float = 0.9, eos_id: Optional[int] = None,
-                     collect_signals: bool = True):
+                     collect_signals: bool = True, tree_width: int = 0):
     """K rounds of serving.  Each round (while any lane is active):
 
       1. decides speculate-vs-plain from the Eq. 5 threshold table and
          the acceptance EMA (always speculate without a table),
-      2. runs ``spec_decode_step`` or ``plain_step_from_carry``,
+      2. runs ``spec_decode_step`` (``tree_decode_step`` at
+         ``tree_width`` >= 1: carry, telemetry and signals stay γ+1
+         wide) or ``plain_step_from_carry``,
       3. commits tokens: per-request budget clamp, optional EOS cut,
          active-mask update,
       4. packs the kept positions' training signals with the
@@ -339,7 +473,12 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
             ys_all.append(ys)
             continue
 
-        if use_spec:
+        if use_spec and tree_width:
+            out = tree_decode_step(cfg, dcfg, tparams, dparams, cache, dcache,
+                                   st.carry, gamma=gamma, width=tree_width,
+                                   greedy=greedy)
+            dcache = out["dcache"]
+        elif use_spec:
             out = spec_decode_step(cfg, dcfg, tparams, dparams, cache, dcache,
                                    st.carry, gamma=gamma, greedy=greedy)
             dcache = out["dcache"]

@@ -3,7 +3,8 @@
 // verify_attn_paged.cu): masked GQA attention over one lane's KV rows
 // with an fp32 online softmax.
 //
-// K/V addressing is a compile-time policy (the Paged template flag):
+// K/V addressing is a compile-time policy (the Paged template flag), and
+// so is the tree mode (the Tree flag, below):
 //   dense: lane b's key kp is row (b*S + kp)*Hk + hk of a (B, S, Hk, D)
 //          cache;
 //   paged: it is slot kp % P of page tbl[b*n_tbl + kp/P] of a
@@ -29,6 +30,21 @@
 //
 // Masking.  A row at position qpos sees key kpos iff
 //   pad <= kpos < S, (!causal || kpos <= qpos), (!window || kpos > qpos - window).
+// Tree mode (Tree = true, launched when tree_w > 0; decode only; the
+// Pallas kernel's static tree=(W, g) of verify_attn/kernel.py:27
+// _tree_mask): the T = W*g + 1
+// rows at positions length + [0, T) are a flattened draft tree, slot 0
+// the root and slot 1 + r*g + (j-1) branch r's depth-j node.  Row qi
+// sees the committed keys pad <= kpos < length and the in-block slot
+// ks = kpos - length iff ks == 0, or qi > 0, ks > 0, both in one branch
+// ((ks-1)/g == (qi-1)/g) and (ks-1)%g <= (qi-1)%g.  The window compares
+// logical positions, length + depth (depth 0 at the root, (s-1)%g + 1
+// at slot s), not slots.  An ancestor's slot is never above its
+// descendant's and a slot's depth is never above the slot, so the
+// chain's causal upper key bound stays exact, and a lower bound from the
+// smallest depth in the block skips no key a row of it can see.  The
+// visibility is index arithmetic: no mask crosses into the kernel.  The
+// chain instantiation (Tree = false) holds none of this code.
 // Keys outside the block's key range are never read (their shared-memory
 // slots hold zeros), and inside it a masked key is skipped, never
 // weighted by zero: its score is replaced by -inf before the softmax and
@@ -105,11 +121,44 @@ struct AttnArgs {
   int B, T, S, Hq, Hk;
   int causal, window;
   float scale;
-  // paged only (last, so the dense kernel's parameter offsets, and with
-  // them its machine code, are those of the dense-only version)
+  // paged only (last but for the tree fields, so the dense chain
+  // kernel's parameter offsets, and with them its machine code, are
+  // those of the dense-only version)
   const int* tbl;    // (B, n_tbl) page ids
   int n_tbl, page;   // table width, page size P
+  // tree mode: tree_w branches of depth tree_g, T = tree_w*tree_g + 1
+  // (0, 0: the chain)
+  int tree_w = 0, tree_g = 0;
 };
+
+// Logical depth of block slot s of a tree of depth g.
+__device__ __forceinline__ int tree_depth(int s, int g) {
+  return s == 0 ? 0 : (s - 1) % g + 1;
+}
+
+// Smallest logical depth of the block slots s0 <= s <= s1: depth grows
+// along a branch, so it is s0's unless the range reaches the root or
+// crosses into a later branch (whose first slot has depth 1).
+__device__ __forceinline__ int tree_min_depth(int s0, int s1, int g) {
+  if (s0 == 0) return 0;
+  return (s0 - 1) / g != (s1 - 1) / g ? 1 : tree_depth(s0, g);
+}
+
+// Tree mode: whether the row of slot qi sees key kp (the block's tree
+// starts at position qoff = length).  Committed keys pad <= kp < length
+// and the in-block ancestors of qi (the root, and qi's branch up to its
+// depth) are visible; the window compares logical positions.
+__device__ __forceinline__ bool tree_visible(const AttnArgs& a, int qoff,
+                                             int pad, int kp, int qi) {
+  const int g = a.tree_g;
+  const int qlog = qoff + tree_depth(qi, g);
+  if (kp < qoff) return kp >= pad && (a.window <= 0 || kp > qlog - a.window);
+  const int ks = kp - qoff;
+  if (ks >= a.T) return false;
+  const bool anc = ks == 0 || (qi > 0 && (ks - 1) / g == (qi - 1) / g &&
+                               (ks - 1) % g <= (qi - 1) % g);
+  return anc && (a.window <= 0 || qoff + tree_depth(ks, g) > qlog - a.window);
+}
 
 // Row (in units of D elements) of lane b's key kp for kv head hk.
 template <bool Paged>
@@ -123,7 +172,7 @@ __device__ __forceinline__ size_t kv_row(const AttnArgs& a, int b, int kp,
   }
 }
 
-template <typename T, int D, bool Paged>
+template <typename T, int D, bool Paged, bool Tree>
 __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
   constexpr int C = D / 32;
   const int G = a.Hq / a.Hk;
@@ -179,8 +228,15 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
 
   // key range any row of this block can see
   const int last = min(row0 + kRows, nrows) - 1;
-  const int qp_lo = qoff + row0 / G, qp_hi = qoff + last / G;
+  int qp_lo = qoff + row0 / G;
+  const int qp_hi = qoff + last / G;
   int kv_lo = max(pad, 0);
+  if constexpr (Tree) {
+    // the lowest logical position is length + the smallest depth of the
+    // block's slots, and the in-block keys are visible whatever the pad
+    qp_lo = qoff + tree_min_depth(row0 / G, last / G, a.tree_g);
+    kv_lo = max(min(pad, qoff), 0);
+  }
   if (a.window > 0) kv_lo = max(kv_lo, qp_lo - a.window + 1);
   const int kv_hi = a.causal ? min(a.S - 1, qp_hi) : a.S - 1;
 
@@ -191,7 +247,8 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = row0 + warp * kRowsPerWarp + i;
     live[i] = r < nrows;
-    qpos[i] = qoff + r / G;
+    // a tree row keeps its slot here (tree_visible makes its position)
+    qpos[i] = Tree ? r / G : qoff + r / G;
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -245,9 +302,15 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
     float p[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-      const bool vis = live[i] && kp >= kv_lo && kp <= kv_hi &&
-                       (!a.causal || kp <= qpos[i]) &&
-                       (a.window <= 0 || kp > qpos[i] - a.window);
+      bool vis;
+      if constexpr (Tree) {
+        vis = live[i] && kp >= kv_lo && kp <= kv_hi &&
+              tree_visible(a, qoff, pad, kp, qpos[i]);
+      } else {
+        vis = live[i] && kp >= kv_lo && kp <= kv_hi &&
+              (!a.causal || kp <= qpos[i]) &&
+              (a.window <= 0 || kp > qpos[i] - a.window);
+      }
       const float sc = vis ? s[i] * a.scale : -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(sc));
       p[i] = 0.f;
@@ -288,18 +351,23 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int.
-template <bool Paged>
+// Tree = true is the tree mode (tree_w > 0), false the chain (tree_w 0).
+template <bool Paged, bool Tree = false>
 inline int launch_attn_rows(const AttnArgs& a, int head_dim, int dtype,
                             cudaStream_t stream) {
   if (a.Hk <= 0 || a.Hq % a.Hk != 0 || a.T <= 0 || a.B <= 0) return (int)cudaErrorInvalidValue;
   if (Paged && (a.tbl == nullptr || a.page <= 0 || a.n_tbl <= 0 ||
                 a.S > a.n_tbl * a.page))
     return (int)cudaErrorInvalidValue;
+  if (Tree ? (a.tree_w <= 0 || a.tree_g <= 0 || !a.causal ||
+              a.qoff == nullptr || a.T != a.tree_w * a.tree_g + 1)
+           : (a.tree_w != 0 || a.tree_g != 0))
+    return (int)cudaErrorInvalidValue;
   const int nrows = a.T * (a.Hq / a.Hk);
   const dim3 grid((nrows + kRows - 1) / kRows, a.Hk, a.B);
   const dim3 block(kWarps * 32);
 #define REPRO_ATTN_CASE(DT, DD)                                         \
-  attn_rows_kernel<DT, DD, Paged><<<grid, block, 0, stream>>>(a);              \
+  attn_rows_kernel<DT, DD, Paged, Tree><<<grid, block, 0, stream>>>(a);              \
   return (int)cudaGetLastError();
   if (dtype == 0) {
     if (head_dim == 32) { REPRO_ATTN_CASE(float, 32) }

@@ -1,13 +1,19 @@
 // Decode-side (verify / extend / propose) attention for Hopper (sm_90a).
 //
-// Replaces src/repro/kernels/verify_attn/kernel.py:214 verify_attention
-// with tree=(0, 0): T queries per lane at cache positions
+// Replaces src/repro/kernels/verify_attn/kernel.py:214 verify_attention,
+// both modes.  tree=(0, 0), the chain: T queries per lane at cache positions
 // lengths[b] + [0, T) attend a dense (B, Smax, Hk, D) cache that already
 // holds the new block; row t sees kpos in [pad[b], lengths[b] + t],
 // optionally windowed.  Keys past lengths[b] + T - 1 (and before pad[b])
 // are never read.  T runs from 1 (draft propose) through 4 (target verify,
 // draft extend) to S - 1 (the draft's prompt seeding), so queries are
-// tiled too, not only keys.
+// tiled too, not only keys.  tree=(W, g) (tree_w, tree_g > 0; the
+// _tree_mask mode, kernel.py:27, called at :78): the T = W*g + 1 rows are
+// a flattened draft tree and each sees the committed keys plus its own
+// root path (attn_rows.cuh, "Tree mode"); the target verify of a tree
+// round (T = 13 at W = 4, g = 3) runs here.  The tree mode reads the
+// same keys as a chain of T rows and adds integer tests per key; a row
+// of slot s reads its lane's live K/V up to length + s like the chain's.
 //
 // What bounds it on an H100: for T <= 4 the work per byte is small
 // (each K/V element feeds 2·G·T = 128 flops at G = 16, T = 4), so the
@@ -28,8 +34,8 @@
 extern "C" int repro_verify_attn(const void* q, const void* k, const void* v,
                                  const int* lengths, const int* pad,
                                  void* out, int B, int T, int Smax, int Hq,
-                                 int Hk, int D, int window, int dtype,
-                                 void* stream) {
+                                 int Hk, int D, int window, int tree_w,
+                                 int tree_g, int dtype, void* stream) {
   repro::AttnArgs a;
   a.q = q;
   a.k = k;
@@ -46,6 +52,10 @@ extern "C" int repro_verify_attn(const void* q, const void* k, const void* v,
   a.Hk = Hk;
   a.causal = 1;
   a.window = window;
+  a.tree_w = tree_w;
+  a.tree_g = tree_g;
   a.scale = 1.0f / sqrtf((float)D);
-  return repro::launch_attn_rows<false>(a, D, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tree_w > 0 ? repro::launch_attn_rows<false, true>(a, D, dtype, st)
+                    : repro::launch_attn_rows<false, false>(a, D, dtype, st);
 }

@@ -2,7 +2,8 @@
 // (sm_90a).
 //
 // Replaces src/repro/kernels/verify_attn/kernel.py:157
-// verify_attention_paged with tree=(0, 0): T queries per lane at cache
+// verify_attention_paged, both modes (tree=(W, g): the _tree_mask mode
+// called at :134; see attn_rows.cuh).  Chain: T queries per lane at cache
 // positions lengths[b] + [0, T) attend K/V read through the lane's block
 // table row: k/v_pool (NP + 1, P, Hk, D), tbl (B, n_tbl), the lane window
 // n_tbl * P.  Row t sees kpos in [pad[b], lengths[b] + t], optionally
@@ -25,7 +26,8 @@ extern "C" int repro_verify_attn_paged(const void* q, const void* k_pool,
                                        const int* lengths, const int* pad,
                                        void* out, int B, int T, int n_tbl,
                                        int P, int Hq, int Hk, int D,
-                                       int window, int dtype, void* stream) {
+                                       int window, int tree_w, int tree_g,
+                                       int dtype, void* stream) {
   repro::AttnArgs a;
   a.q = q;
   a.k = k_pool;
@@ -43,6 +45,10 @@ extern "C" int repro_verify_attn_paged(const void* q, const void* k_pool,
   a.Hk = Hk;
   a.causal = 1;
   a.window = window;
+  a.tree_w = tree_w;
+  a.tree_g = tree_g;
   a.scale = 1.0f / sqrtf((float)D);
-  return repro::launch_attn_rows<true>(a, D, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tree_w > 0 ? repro::launch_attn_rows<true, true>(a, D, dtype, st)
+                    : repro::launch_attn_rows<true, false>(a, D, dtype, st);
 }

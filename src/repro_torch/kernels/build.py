@@ -36,14 +36,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, pad, out, B, S, Hq, Hk, D, causal, window, dtype, stream
     "repro_flash_attn": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    # q, k, v, lengths, pad, out, B, T, Smax, Hq, Hk, D, window, dtype, stream
-    "repro_verify_attn": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, lengths, pad, out, B, T, Smax, Hq, Hk, D, window, tree_w,
+    # tree_g, dtype, stream
+    "repro_verify_attn": [_P] * 6 + [_I] * 10 + [_P],
     # q, k_pool, v_pool, tbl, pad, out, B, S, n_tbl, P, Hq, Hk, D, causal,
     # window, dtype, stream
     "repro_flash_attn_paged": [_P] * 6 + [_I] * 10 + [_P],
     # q, k_pool, v_pool, tbl, lengths, pad, out, B, T, n_tbl, P, Hq, Hk, D,
-    # window, dtype, stream
-    "repro_verify_attn_paged": [_P] * 7 + [_I] * 9 + [_P],
+    # window, tree_w, tree_g, dtype, stream
+    "repro_verify_attn_paged": [_P] * 7 + [_I] * 11 + [_P],
     # feats, tokens, mask, pf, pt, cnt, B, T, F, elem_bytes, stream
     "repro_extract_pack": [_P] * 6 + [_I] * 4 + [_P],
 }

@@ -1,6 +1,7 @@
 """GQA attention, dense subset (port of ``repro/models/attention.py``):
-RoPE, the masked reference ``attend``, the q/k/v and output projections,
-the KV scatter, and the serving prefill and decode attention.
+RoPE, the masked reference ``attend``, the draft-tree slot helpers, the
+q/k/v and output projections, the KV scatter, and the serving prefill and
+decode attention (chain or draft tree).
 
 Unlike the JAX model, which computes its attention with jnp, the port
 runs both attention calls through its kernels: the left-padded serving
@@ -19,6 +20,7 @@ copies it through the table afterwards.  Both compute what JAX computes.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -76,6 +78,33 @@ def attend(q, k, v, mask, *, softcap: float = 0.0):
     p = p / torch.where(denom > 0, denom, torch.ones_like(denom))
     out = torch.einsum("bkgts,bskd->btkgd", p, v.float())
     return out.reshape(b, t, hq, d).to(q.dtype)
+
+
+# --------------------------------------------------------- draft trees
+def tree_offsets(width: int, gamma: int, device=None):
+    """Logical depth of each slot of a flattened draft-tree block: slot 0
+    is the root, slot 1 + r·γ + (j-1) branch r's depth-j node.  Returns
+    (W·γ + 1,) int64 depths [0, 1..γ, 1..γ, ...]."""
+    idx = torch.arange(width * gamma + 1, device=device)
+    return torch.where(idx == 0, 0, (idx - 1) % gamma + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_offsets_on(width: int, gamma: int, device: torch.device):
+    """``tree_offsets`` made once per (shape, device): a decode step asks
+    for it in every layer, and it never changes (read only)."""
+    return tree_offsets(width, gamma, device=device)
+
+
+def tree_block_visible(qi, kslot, width: int, gamma: int):
+    """In-block tree-causal visibility: query slot ``qi`` sees key slot
+    ``kslot`` iff the key is the shared root or a same-branch
+    ancestor-or-self.  Broadcastable integer tensors."""
+    t = width * gamma + 1
+    same_branch = (kslot - 1) // gamma == (qi - 1) // gamma
+    anc = (kslot - 1) % gamma <= (qi - 1) % gamma
+    return (kslot == 0) | ((qi > 0) & (kslot > 0) & (kslot < t)
+                           & same_branch & anc)
 
 
 # -------------------------------------------------------- module wrapper
@@ -155,19 +184,26 @@ def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
 
 
 def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
-                          lengths, pad=None, *, page_tbl=None):
+                          lengths, pad=None, *, page_tbl=None, tree=None):
     """x: (B, T, D) new tokens at cache positions lengths + [0..T).
     RoPE positions are lengths - pad + t.  Writes the new K/V into the
     caches in place, then attends through the verify kernel.
 
     Paged (``page_tbl`` (B, n_tbl) given): k/v_cache are the layer's
     (NP + 1, P, Hk, D) page pools; the write and the attention go
-    through the block table."""
+    through the block table.
+
+    Tree (``tree=(W, γ)``): the T = W·γ + 1 rows are a flattened draft
+    tree; RoPE positions use each slot's logical depth
+    (``tree_offsets``), the K/V write is unchanged (flat slots), and the
+    verify kernel runs its tree-causal mode."""
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                      verify_attention_paged)
     b, t, _ = x.shape
     q, k, v = qkv_proj(params, x)
-    rope_pos = lengths[:, None].long() + torch.arange(t, device=x.device)[None]
+    offs = (torch.arange(t, device=x.device) if tree is None
+            else _tree_offsets_on(*tree, x.device))
+    rope_pos = lengths[:, None].long() + offs[None]
     if pad is not None:
         rope_pos = rope_pos - pad[:, None].long()
     q = apply_rope(q, rope_pos, cfg.rope_theta)
@@ -177,11 +213,13 @@ def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
         scatter_kv(v_cache, v, lengths)
         o = verify_attention(q, k_cache, v_cache, lengths, pad,
                              window=cfg.window,
-                             softcap=cfg.attn_logit_softcap)
+                             softcap=cfg.attn_logit_softcap,
+                             tree=tree or (0, 0))
     else:
         scatter_kv_paged(k_cache, page_tbl, k, lengths)
         scatter_kv_paged(v_cache, page_tbl, v, lengths)
         o = verify_attention_paged(q, k_cache, v_cache, page_tbl, lengths,
                                    pad, window=cfg.window,
-                                   softcap=cfg.attn_logit_softcap)
+                                   softcap=cfg.attn_logit_softcap,
+                                   tree=tree or (0, 0))
     return out_proj(params, o), (k_cache, v_cache)

@@ -15,8 +15,9 @@ block table instead; ``decode_step`` writes and attends through the
 table, and ``prefill(..., pools=, tbl_rows=)`` writes the prompt's K/V
 straight into the pools (no dense K/V is built).
 
-Entry points: ``param_specs`` / ``init``, ``prefill``, ``decode_step``,
-``commit_cache``, ``init_cache``, ``paged_check``.  Only attention mixers
+Entry points: ``param_specs`` / ``init``, ``prefill``, ``decode_step``
+(chain or draft tree), ``commit_cache``, ``init_cache``, ``paged_check``,
+``tree_check``.  Only attention mixers
 with the SwiGLU FFN are ported; other block kinds raise
 ``NotImplementedError``.
 """
@@ -110,12 +111,14 @@ def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad, pools=None,
 
 
 def apply_layer_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths,
-                       pad, page_tbl=None):
+                       pad, page_tbl=None, tree=None):
     """Writes this layer's new K/V into k_cache/v_cache (or, with
-    ``page_tbl``, its page pools) in place."""
+    ``page_tbl``, its page pools) in place.  ``tree=(W, γ)``: the rows
+    are a flattened draft tree, scored under the tree-causal mask."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, _ = attn.self_attention_decode(cfg, p["mix"], h, k_cache, v_cache,
-                                        lengths, pad, page_tbl=page_tbl)
+                                        lengths, pad, page_tbl=page_tbl,
+                                        tree=tree)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + ffn(p["ffn"], h2)
@@ -168,13 +171,14 @@ def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
 
 def run_group_decode(cfg, group_params, pattern, repeats, x, cache_group,
                      lengths, pad, base_idx: int, cap_targets, caps,
-                     page_tbl=None):
+                     page_tbl=None, tree=None):
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
     for i in range(repeats):
         for pi in range(len(pattern)):
             entry = cache_group[f"pos{pi}"]
             x = apply_layer_decode(cfg, per_pos[pi][i], x, entry["k"][i],
-                                   entry["v"][i], lengths, pad, page_tbl)
+                                   entry["v"][i], lengths, pad, page_tbl,
+                                   tree)
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, caps
@@ -241,12 +245,13 @@ def prefill(cfg: ModelConfig, params, tokens, *,
             "captures": _caps_to_features(caps)}
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens):
+def decode_step(cfg: ModelConfig, params, cache, tokens, *, tree=None):
     """Verify/decode block: tokens (B, T) at cache positions
     lengths + [0..T).  Writes the block's K/V into ``cache`` in place
     (through ``page_tbl`` when the cache is paged) and returns
     dict(logits (B,T,V) fp32, cache (same tensors, lengths not advanced),
-    captures (B,T,3D))."""
+    captures (B,T,3D)).  With ``tree=(W, γ)`` the block is a flattened
+    draft tree (T = W·γ + 1) scored in one tree-masked pass."""
     lengths, pad = cache["lengths"], cache["pad"]
     page_tbl = cache.get("page_tbl")
     x = embed(params["embed"], tokens, cfg.act_dtype)
@@ -254,7 +259,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     def runner(name, pattern, repeats, x, base, caps):
         return run_group_decode(cfg, params[name], pattern, repeats, x,
                                 cache[name], lengths, pad, base,
-                                cfg.captures, caps, page_tbl)
+                                cfg.captures, caps, page_tbl, tree)
 
     x, caps = _run_groups(cfg, params, x, runner)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -283,6 +288,13 @@ def paged_check(cfg: ModelConfig, max_len: int, page_size: int):
         raise ValueError(
             f"max_len {max_len} must be a multiple of page_size "
             f"{page_size}")
+
+
+def tree_check(cfg: ModelConfig):
+    """Validate a tree-speculation request: the tree verify commits only
+    the accepted root path, which needs per-position K/V rollback, so
+    attention mixers only (the port runs no other kind)."""
+    model_groups(cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,

@@ -1,5 +1,5 @@
-"""TIDE serving engine, greedy chain path, dense or paged KV (port of
-``repro/serving/engine.py``).
+"""TIDE serving engine, greedy chain or draft-tree speculation, dense or
+paged KV (port of ``repro/serving/engine.py``).
 
 Continuous batching over B resident lanes: ``serve_stream`` keeps the
 target KV cache, the EAGLE draft cache and the superstep state on the
@@ -41,11 +41,16 @@ Differences from the JAX engine:
     path.  The pools live as long as the engine, so a prefix published
     in one ``serve_stream`` stays valid in the next (the JAX engine makes
     new pools per stream but keeps its registry).
+  * Tree speculation (``SpeculationPolicy(tree_width=W)``, which
+    ``ServingConfig(tree_width=W)`` sets in the default policy): each
+    speculative round drafts W branches of depth gamma and verifies them
+    in one tree-masked target pass (``core.speculative.tree_decode_step``);
+    W = 1 is the chain bit for bit.  Dense KV only.
   * Only this slice is ported.  Sampled decoding, chunked refill prefill
-    (and with it the paged prefix resume), tree speculation and deploy
-    re-seeding raise ``NotImplementedError`` naming their ROADMAP item;
-    preemption, spill/restore and load shedding have no knob in the
-    port yet.
+    (and with it the paged prefix resume), tree speculation over paged
+    KV and deploy re-seeding raise ``NotImplementedError`` naming their
+    ROADMAP item; preemption, spill/restore and load shedding have no
+    knob in the port yet.
 """
 from __future__ import annotations
 
@@ -201,7 +206,6 @@ def _unported(config: ServingConfig):
         (not config.greedy, "greedy=False", "sampled decoding"),
         (config.prefill_chunk > 0, "prefill_chunk>0",
          "chunked refill prefill"),
-        (config.tree_width > 0, "tree_width>0", "tree speculation"),
         (config.reseed_window > 0, "reseed_window>0", "overload and reseed"),
     )
     for bad, what, item in checks:
@@ -261,11 +265,25 @@ class ServingEngine:
         self.eos_id = config.eos_id
         if policy is None:
             policy = config.make_policy()
+        elif config.tree_width not in (0, policy.speculation.tree_width):
+            raise ValueError(
+                f"ServingConfig.tree_width={config.tree_width} but the "
+                f"policy's is {policy.speculation.tree_width}; the draft "
+                f"shape is the speculation policy's")
         if drafter is not None and policy.speculation.drafter is None:
             policy.speculation.drafter = drafter
         self.policy = policy
         self.drafter = policy.speculation.drafter
         self.policy.speculation.prepare(self.batch, self.device)
+        # the draft shape is the speculation policy's (the config seeds
+        # the default policy)
+        self.tree_width = policy.speculation.tree_width
+        if self.tree_width:
+            T.tree_check(cfg)
+            if config.page_size > 0:
+                raise NotImplementedError(
+                    "tree_width>0 with page_size>0 is not ported yet "
+                    "(ROADMAP queue 1: paged tree speculation)")
         self.deploy_source = deploy_source
         self._deploy_seq = 0
         self.gate_arrivals = config.gate_arrivals
@@ -358,7 +376,8 @@ class ServingEngine:
             self.cfg, self.dcfg, self.params, self.dparams, cache, dcache,
             state, max_new, table, rounds=self.superstep_rounds,
             gamma=self.gamma, greedy=self.greedy, ema_decay=self._ema,
-            eos_id=self.eos_id, collect_signals=self.extractor is not None)
+            eos_id=self.eos_id, collect_signals=self.extractor is not None,
+            tree_width=self.tree_width)
         self.host_syncs += out["host_syncs"]
         return out
 
@@ -401,6 +420,7 @@ class ServingEngine:
         reg.gauge("spec.resumes", fn=lambda: sp.resumes)
         reg.gauge("spec.parked", fn=lambda: int(sp.parked))
         reg.gauge("spec.probing", fn=lambda: int(sp.probing))
+        reg.gauge("spec.tree_width", fn=lambda: self.tree_width)
         reg.gauge("spec.gamma", fn=lambda: self.gamma)
         reg.gauge("spec.accept_ema", fn=lambda: self.accept_ema)
         if self.allocator is not None:
@@ -981,10 +1001,16 @@ class ServingEngine:
             cache, dcache = self._ship_tables(cache, dcache)
             if use_spec:
                 with self.tracer.span("step.dispatch", spec=True):
-                    out = spec.spec_decode_step(
-                        self.cfg, self.dcfg, self.params, self.dparams,
-                        cache, dcache, carry, gamma=self.gamma,
-                        greedy=self.greedy)
+                    if self.tree_width:
+                        out = spec.tree_decode_step(
+                            self.cfg, self.dcfg, self.params, self.dparams,
+                            cache, dcache, carry, gamma=self.gamma,
+                            width=self.tree_width, greedy=self.greedy)
+                    else:
+                        out = spec.spec_decode_step(
+                            self.cfg, self.dcfg, self.params, self.dparams,
+                            cache, dcache, carry, gamma=self.gamma,
+                            greedy=self.greedy)
                 cache, dcache, carry = (out["cache"], out["dcache"],
                                         out["carry"])
                 n_commit = self._host(out["n_commit"])

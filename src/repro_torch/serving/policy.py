@@ -166,8 +166,14 @@ class SpeculationPolicy:
     name = "adaptive"
 
     def __init__(self, drafter=None, park_patience: int = 0,
-                 probe_interval: int = 8):
+                 probe_interval: int = 8, tree_width: int = 0):
         self.drafter = drafter
+        # draft shape: 0 = the linear γ-chain, >= 1 = a width-way token
+        # tree verified in one tree-masked target pass (width 1 is the
+        # chain bit for bit).  The policy owns it, as the speculation
+        # knob a learned controller would tune; it is fixed for the
+        # engine's lifetime.
+        self.tree_width = int(tree_width)
         self.park_patience = int(park_patience)
         self.probe_interval = max(int(probe_interval), 1)
         self.parked = False
@@ -314,10 +320,10 @@ class ServingConfig:
     """Unified serving configuration: every engine/scheduler knob, plus
     the policy selection, in one dataclass (``ServingEngine(config=...)``).
 
-    ``prefill_chunk``, ``tree_width``, ``reseed_window`` and
-    ``greedy=False`` name paths of the JAX engine that are not ported
-    yet; the engine raises ``NotImplementedError`` for any value but the
-    default."""
+    ``prefill_chunk``, ``reseed_window`` and ``greedy=False`` name paths
+    of the JAX engine that are not ported yet, and so does ``tree_width``
+    together with ``page_size``; the engine raises
+    ``NotImplementedError`` for them."""
 
     # ---- engine geometry / decode
     gamma: int = 3
@@ -334,8 +340,13 @@ class ServingConfig:
     idle_wait_s: float = 0.005
     completion_sink: Optional[Callable[[Request], None]] = \
         dataclasses.field(default=None, repr=False)
-    # ---- unported: chunked refill prefill, tree speculation
+    # ---- unported: chunked refill prefill
     prefill_chunk: int = 0
+    # ---- tree speculation (0 = linear γ-chain drafts)
+    # tree_width >= 1 drafts width first continuations, each a γ-deep
+    # chain, verifies every branch in one tree-masked target pass and
+    # commits the longest accepted root path; width 1 is the chain bit
+    # for bit.  Dense KV only in the port (paged: NotImplementedError).
     tree_width: int = 0
     # ---- paged KV cache (0 = dense per-lane caches)
     # page_size > 0 switches target + draft caches to block-table page
@@ -361,4 +372,5 @@ class ServingConfig:
             admission=adm,
             speculation=SpeculationPolicy(
                 drafter, park_patience=self.spec_park_patience,
-                probe_interval=self.spec_probe_interval))
+                probe_interval=self.spec_probe_interval,
+                tree_width=self.tree_width))

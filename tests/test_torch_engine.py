@@ -37,6 +37,7 @@ _FLAT = LatencyProfile([1, 2, 4, 8], [1.0, 1.0, 1.0, 1.0], d0_ms=0.33)
 
 @pytest.fixture(scope="module")
 def pretrained():
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     jcfg = C.get("tide-tiny")
     jp = JT.init(jcfg, jax.random.key(0))
@@ -53,8 +54,9 @@ def pretrained():
     rng = np.random.default_rng(0)
     prompts = [domains["science"].sample_prompt(rng) for _ in range(8)]
     budgets = [24, 9, 24, 17, 5, 24, 12, 20]
-    return dict(jcfg=jcfg, jp=jp, jdcfg=jdcfg, jdp=jdp, cfg=cfg, dcfg=dcfg,
-                tp=tp, tdp=tdp, prompts=prompts, budgets=budgets)
+    yield dict(jcfg=jcfg, jp=jp, jdcfg=jdcfg, jdp=jdp, cfg=cfg, dcfg=dcfg,
+               tp=tp, tdp=tdp, prompts=prompts, budgets=budgets)
+    torch.set_num_threads(threads)
 
 
 def _port(pt, rounds, *, drafter=False, ema0=None, stream=True, n=8,

@@ -5,6 +5,9 @@ attention, the CPU dispatch of each wrapper, and -- on a CUDA card only
 bit for bit against the dense kernel on the gathered view.  The paged
 plain versions are held to JAX in tests/test_torch_paging.py.
 
+The verify kernel's tree mode (the draft-tree verify) is held here on
+the card; its plain version is held to JAX in tests/test_torch_tree.py.
+
 Tolerances as in tests/test_kernels.py: fp32 rtol/atol 2e-5, bf16 2e-2;
 extract_pack is a copy and is held exactly.  The JAX half imports JAX
 inside a fixture, so the card's machine (no JAX) runs the card half."""
@@ -23,7 +26,8 @@ from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
 from repro_torch.kernels.verify_attn.ops import (  # noqa: E402
     verify_attention, verify_attention_paged)
 from repro_torch.kernels.verify_attn.ref import (  # noqa: E402
-    verify_attention_paged_ref, verify_attention_ref)
+    verify_attention_paged_ref, verify_attention_ref,
+    verify_attention_tree_ref)
 
 DTYPES = ["float32", "bfloat16"]
 FLASH_SHAPES = [(1, 128, 2, 1, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -34,6 +38,8 @@ VERIFY_SHAPES = [(2, 4, 4, 2, 64, 512, 0), (1, 4, 8, 8, 128, 256, 0),
                  (2, 4, 4, 2, 64, 1024, 256)]
 PACK_SHAPES = [(2, 4, 512, 0.5), (3, 8, 1024, 0.25), (1, 4, 1536, 1.0),
                (2, 4, 512, 0.0)]
+# (W, gamma, window) as tests/test_tree.py:59
+TREE_SHAPES = [(1, 3, 0), (2, 3, 0), (3, 2, 0), (2, 4, 6), (4, 2, 5)]
 
 
 def _tol(dtype):
@@ -43,14 +49,31 @@ def _tol(dtype):
 
 @pytest.fixture(scope="module")
 def jx():
+    """The JAX half.  The comparisons must not depend on what ran before
+    in this process: start from a fresh compile state (as
+    tests/test_tree.py does), pay the process's first Pallas interpret
+    compile on a throwaway call so that no compared case is it, and pin
+    torch to 2 threads for this module (the count is restored after
+    it)."""
     pytest.importorskip("jax")
+    import gc
+
+    import jax
     import jax.numpy as jnp
     from repro.kernels.extract_pack.kernel import extract_pack
     from repro.kernels.flash_attn.kernel import flash_attention as jflash
     from repro.kernels.verify_attn.kernel import verify_attention as jverify
     from repro.models import attention as jattn
-    return dict(jnp=jnp, extract_pack=extract_pack, flash=jflash,
-                verify=jverify, attn=jattn)
+    jax.clear_caches()
+    gc.collect()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    z = jnp.zeros((1, 64, 1, 32), jnp.float32)
+    jflash(z, z, z, causal=True, block_q=64, block_kv=64,
+           interpret=True).block_until_ready()
+    yield dict(jnp=jnp, extract_pack=extract_pack, flash=jflash,
+               verify=jverify, attn=jattn)
+    torch.set_num_threads(threads)
 
 
 def _both(x, dtype, jnp):
@@ -395,3 +418,91 @@ def test_cuda_paged_refuses_dense_cache(cuda):
     with pytest.raises(ValueError):
         flash_attention_paged(_randn((2, 100, 4, 64), "bfloat16", cuda, 3),
                               pool[0], pool[0], tbl)
+
+
+# --------------------------------------- tree-mode verify kernels (card only)
+def _tree_case(b, w, g, hq, hk, d, s, dtype, dev, seed):
+    """Queries of a W-branch tree block and a cache; lane lengths spread
+    over the cache, the last one so close to the end that the block runs
+    past it; pads below each length."""
+    t = w * g + 1
+    q = _randn((b, t, hq, d), dtype, dev, seed)
+    k = _randn((b, s, hk, d), dtype, dev, seed + 1)
+    v = _randn((b, s, hk, d), dtype, dev, seed + 2)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(t, s - t, size=(b,))
+    lengths[-1] = s - 2
+    pad = np.minimum(rng.integers(0, s // 4, size=(b,)), lengths - 1)
+    return (q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(pad, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,w,g,window,hq,hk,d,s", [
+    (2, w, g, win, 4, 2, 64, 256) for w, g, win in TREE_SHAPES] + [
+    (8, 4, 3, 0, 32, 2, 128, 1024), (8, 4, 3, 24, 32, 2, 128, 1024)])
+def test_cuda_verify_tree_vs_plain(cuda, b, w, g, window, hq, hk, d, s,
+                                   dtype):
+    """The kernel's tree mode against its plain version; at W = 1 it is
+    the chain kernel bit for bit."""
+    q, k, v, ln, pd = _tree_case(b, w, g, hq, hk, d, s, dtype, cuda, 51)
+    n0 = (verify_attention.launches, verify_attention.tree_launches)
+    got = verify_attention(q, k, v, ln, pd, window=window, tree=(w, g))
+    want = verify_attention_tree_ref(q, k, v, ln, pd, tree=(w, g),
+                                     window=window)
+    torch.cuda.synchronize()
+    assert (verify_attention.launches, verify_attention.tree_launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol(dtype))
+    if w == 1:
+        chain = verify_attention(q, k, v, ln, pd, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, chain), "tree W=1 != chain kernel"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,w,g,window,hq,hk,d,page,n_tbl", [
+    (2, w, g, win, 4, 2, 64, 16, 16) for w, g, win in TREE_SHAPES] + [
+    (8, 4, 3, 0, 32, 2, 128, 16, 64), (8, 4, 3, 24, 32, 2, 128, 16, 64)])
+def test_cuda_verify_tree_paged_vs_dense(cuda, b, w, g, window, hq, hk, d,
+                                         page, n_tbl, dtype):
+    """The paged kernel's tree mode equals the dense kernel's on the
+    gathered view bit for bit, matches the plain version, and never reads
+    the trash page."""
+    from repro_torch.kernels.verify_attn.ref import (
+        verify_attention_tree_paged_ref)
+    t = w * g + 1
+    smax = page * n_tbl
+    g_ = np.random.default_rng(61)
+    lengths = g_.integers(t, smax - t, size=(b,)).astype(np.int32)
+    pad = np.minimum(g_.integers(0, smax // 4, size=(b,)), lengths - 1)
+    need = [-(-int(n + t) // page) for n in lengths]
+    k_pool, v_pool, tbl = _paged_case(b, hk, d, page, n_tbl, dtype, cuda,
+                                      63, need)
+    q = _randn((b, t, hq, d), dtype, cuda, 65)
+    ln = torch.tensor(lengths, device=cuda)
+    pd = torch.tensor(pad, dtype=torch.int32, device=cuda)
+    n0 = verify_attention_paged.tree_launches
+    got = verify_attention_paged(q, k_pool, v_pool, tbl, ln, pd,
+                                 window=window, tree=(w, g))
+    dense = verify_attention(q, gather_view(k_pool, tbl),
+                             gather_view(v_pool, tbl), ln, pd, window=window,
+                             tree=(w, g))
+    want = verify_attention_tree_paged_ref(q, k_pool, v_pool, tbl, ln, pd,
+                                           tree=(w, g), window=window)
+    torch.cuda.synchronize()
+    assert verify_attention_paged.tree_launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, dense), "paged tree != dense tree on the view"
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol(dtype))
+    k_pool[-1] = float("nan")
+    v_pool[-1] = float("nan")
+    again = verify_attention_paged(q, k_pool, v_pool, tbl, ln, pd,
+                                   window=window, tree=(w, g))
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)

@@ -32,6 +32,7 @@ GAMMA = 3
 
 @pytest.fixture(scope="module")
 def models():
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     jcfg = C.get("tide-tiny")
     jdcfg = jeagle.draft_config(jcfg)
@@ -41,8 +42,9 @@ def models():
     dcfg = eagle.draft_config(cfg)
     tp = bridge.target_from_numpy(cfg, _flatten(jp), device="cpu")
     tdp = bridge.draft_from_numpy(dcfg, _flatten(jdp), device="cpu")
-    return dict(jcfg=jcfg, jdcfg=jdcfg, jp=jp, jdp=jdp, cfg=cfg, dcfg=dcfg,
-                tp=tp, tdp=tdp)
+    yield dict(jcfg=jcfg, jdcfg=jdcfg, jp=jp, jdp=jdp, cfg=cfg, dcfg=dcfg,
+               tp=tp, tdp=tdp)
+    torch.set_num_threads(threads)
 
 
 def _prompts(with_pad: bool):

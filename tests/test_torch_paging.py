@@ -343,6 +343,7 @@ def test_paged_wrappers_take_plain_version_on_cpu():
 # ======================================================== the engine
 @pytest.fixture(scope="module")
 def pretrained():
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     jcfg = C.get("tide-tiny")
     jp = JT.init(jcfg, jax.random.key(0))
@@ -356,8 +357,9 @@ def pretrained():
     dcfg = eagle.draft_config(cfg)
     tp = bridge.target_from_numpy(cfg, _flatten(jp), device="cpu")
     tdp = bridge.draft_from_numpy(dcfg, _flatten(jdp), device="cpu")
-    return dict(jcfg=jcfg, jp=jp, jdcfg=jdcfg, jdp=jdp, cfg=cfg, dcfg=dcfg,
-                tp=tp, tdp=tdp)
+    yield dict(jcfg=jcfg, jp=jp, jdcfg=jdcfg, jdp=jdp, cfg=cfg, dcfg=dcfg,
+               tp=tp, tdp=tdp)
+    torch.set_num_threads(threads)
 
 
 def _prompts(vocab, lens, seed):
