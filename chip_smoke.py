@@ -50,15 +50,30 @@ Phases, one JSON line each:
            streams that differ from the chain's and the top-2 logit gap
            at the first flip); each target verify must be one tree-mode
            launch per layer.
-  profile  torch.profiler over a short serve on the dense, the paged and
-           the two tree engines: device busy share, device time by
-           kernel class, and the host-blocking CUDA calls
-           (synchronizations, pageable host-to-device copies) of each;
-           the paged and tree serves add none.
+  paged_tree_serve  tree speculation over paged KV (page 16) on the same
+           weights and requests, three times: W = 1 and W = 4 with the
+           dense footprint of 512 pages (W = 1's streams, supersteps
+           and host syncs must equal the chain serve's, W = 4's streams
+           the dense W = 4 tree serve's), then W = 4 with 256 pages
+           (the tree's larger reservation makes the guard defer).  Every
+           target verify is one launch per layer of the paged kernel in
+           tree mode (layers x speculative rounds, asserted), the draft
+           attends through the paged kernel in chain mode, the dense
+           verify kernel runs only for the refills' draft seeding, and
+           no page leaks after a drain.
+  profile  torch.profiler over a short serve on the dense engine right
+           after its serve, then on the half-pool paged engine, each
+           tree engine and the W = 4 paged tree engine, each right after
+           its serve: device busy share, device time by kernel class,
+           and the host-blocking CUDA calls (synchronizations, pageable
+           host-to-device copies) of each; no paged or tree serve may
+           block the host more than the chain.  Each engine is freed
+           before the next is built.
 
-Then the kernel table (``{"kernels": [...]}``), the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero before the last line.  Without a CUDA card it exits non-zero
+Then the kernel table (``{"kernels": [...]}``: seven rows, each with its
+launch count from the main-path serve that runs it), the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
+and exits non-zero before the last line.  Without a CUDA card it exits non-zero
 at once.
 """
 from __future__ import annotations
@@ -84,7 +99,13 @@ GLM = dict(B=8, S=512, SMAX=1024, HQ=32, HK=2, D=128, F=3 * 4096, GAMMA=3,
            P=16, TREE_W=4)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase line also gets the seconds since start."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - T_START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -461,7 +482,6 @@ def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
         library_ms=cuda_ms(lambda: _sdpa(qt, gather_view(kpool, tb),
                                          gather_view(vpool, tb), tmask)),
         library="pool[tbl] gather + scaled_dot_product_attention (2 calls)",
-        main_path="none in this slice (the paged tree engine path is queued)",
         shape=f"tree=({W},{G}) q {tuple(qt.shape)} pools "
               f"{tuple(kpool.shape)} bf16")
 
@@ -698,14 +718,15 @@ def phase_serve():
     return launches, eng, summary, [list(r.generated) for r in reqs]
 
 
-def phase_paged_serve(dense_eng, dense, dense_streams):
+def phase_paged_serve(dense_eng, dense, dense_streams, blocking):
     """The serve on a paged engine (page 16) with the same weights and
     requests: first with the dense footprint of pages, where the schedule
-    must be the dense serve's exactly, then with half of it."""
+    must be the dense serve's exactly, then with half of it, whose engine
+    is then profiled.  Each engine is freed before the next is built.
+    Returns the half run's launches."""
     from repro_torch.core.signals import SignalExtractor, SignalStore
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.policy import ServingConfig
-    out = {}
     for name, num_pages in (("dense_footprint", 512), ("half", 256)):
         conf = ServingConfig(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
                              superstep_rounds=8, page_size=GLM["P"],
@@ -746,11 +767,15 @@ def phase_paged_serve(dense_eng, dense, dense_streams):
               "host_syncs_per_superstep_dense":
                   dense["host_syncs_per_superstep"],
               "nvidia_smi": smi()})
-        out[name] = (launches, eng)
-    return out["half"]
+        if name == "half":
+            half = launches
+            profile_against(eng, "paged", blocking)
+        del eng
+        torch.cuda.empty_cache()
+    return half
 
 
-def phase_tree_serve(dense_eng, dense, dense_streams):
+def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
     """Greedy tree speculation on the serve phase's engine configuration,
     weights and requests (glm4-9b at full width and depth), W = 1 and
     W = 4.  W = 1 must be the chain serve exactly: streams, supersteps
@@ -760,7 +785,9 @@ def phase_tree_serve(dense_eng, dense, dense_streams):
     can flip; the phase reports how many streams differ and the gap at
     the first flip.  Random weights: the draft's proposals are (almost)
     never accepted, so the mean accepted length is about 1.0 and the
-    winning branch is 0.  Returns {W: (launches, engine)}."""
+    winning branch is 0.  Each engine is profiled right after its serve
+    and freed before the next is built.  Returns {W: (launches,
+    streams)}."""
     from repro_torch.core.signals import SignalExtractor, SignalStore
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
@@ -815,8 +842,98 @@ def phase_tree_serve(dense_eng, dense, dense_streams):
                     .topk(2).values
                 row["first_flip"] = {"request": i, "step": j,
                                      "top2_logit_gap": float(top[0] - top[1])}
-        out[width] = (launches, eng)
+        out[width] = (launches, streams)
         emit(row)
+        profile_against(eng, f"tree W={width}", blocking)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
+                           blocking):
+    """Greedy tree speculation over paged KV (page 16) on the serve
+    phase's weights and requests: W = 1 and W = 4 with the dense
+    footprint of 512 pages, then W = 4 with 256.  The target verify of
+    every speculative round is one launch per layer of the paged kernel
+    in tree mode, and no dense kernel verifies a target block; the draft
+    attends through the paged kernel in chain mode (one extend and
+    W * gamma proposes a round), and the dense verify kernel runs once
+    per prefill op, for the refill's draft seeding on its dense staging
+    cache.  With 512 pages W = 1 must be the chain serve (streams,
+    supersteps, host syncs) and W = 4 the dense W = 4 tree serve
+    (streams); with 256 the tree's reservation (gamma * W + 1 = 13 rows
+    where the chain reserves 4) makes the guard defer.  No page leaks
+    after a drain.  The W = 4 full-pool engine is profiled.  Each engine
+    is freed before the next is built.  Returns the W = 4 full-pool
+    launches."""
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    W4, G = GLM["TREE_W"], GLM["GAMMA"]
+    out = None
+    for width, num_pages in ((1, 512), (W4, 512), (W4, 256)):
+        conf = ServingConfig(batch_size=8, max_len=1024, gamma=G,
+                             superstep_rounds=8, page_size=GLM["P"],
+                             num_pages=num_pages, tree_width=width)
+        eng = ServingEngine(dense_eng.cfg, dense_eng.params, dense_eng.dcfg,
+                            dense_eng.dparams, config=conf,
+                            device=dense_eng.device,
+                            extractor=SignalExtractor(SignalStore()))
+        reqs = _serve_requests(eng.cfg.vocab_size)
+        summary, launches = _timed_serve(eng, reqs)
+        st = eng.stats
+        streams = [list(r.generated) for r in reqs]
+        eng.release_prefix_cache()
+        eng.allocator.assert_clean()
+        assert st.pages_peak <= num_pages
+        n_layers = eng.cfg.num_layers
+        n_ops = len(summary["prefill_rows_width_ms"])
+        draft_paged = (launches["verify_attention_paged"]
+                       - launches["verify_attention_paged_tree"])
+        assert launches["verify_attention_paged_tree"] == \
+            n_layers * st.spec_steps, (launches, st.spec_steps)
+        assert launches["verify_attention_tree"] == 0, launches
+        assert draft_paged == st.spec_steps * (1 + width * G), launches
+        assert launches["verify_attention"] == n_ops, (launches, n_ops)
+        assert launches["flash_attention_paged"] == n_layers * n_ops, launches
+        assert launches["flash_attention"] == 0, launches
+        assert launches["extract_pack"] > 0, launches
+        row = {"phase": "paged_tree_serve", "tree_width": width,
+               "page_size": GLM["P"], "num_pages": num_pages, **summary,
+               "pages_peak": st.pages_peak,
+               "admission_deferrals": st.admission_deferrals,
+               "prefix_hits": st.prefix_hits,
+               "reservation_block_rows": G * width + 1,
+               "draft_attention": "verify_attention_paged, chain mode: "
+                                  f"{draft_paged} launches",
+               "dense_verify_launches_refill_seeding":
+                   launches["verify_attention"],
+               "streams_differing_from_chain": sum(
+                   a != b for a, b in zip(streams, dense_streams)),
+               "streams_differing_from_dense_tree": sum(
+                   a != b for a, b in zip(streams, tree_streams[width])),
+               "tokens_per_s_chain": dense["tokens_per_s"],
+               "superstep_ms_median_chain": dense["superstep_ms_median"],
+               "note": "random weights: mean accepted length ~1.0",
+               "nvidia_smi": smi()}
+        if num_pages == 512:
+            assert st.admission_deferrals == 0
+            assert streams == tree_streams[width], \
+                f"paged tree W={width} streams != dense tree W={width}"
+        else:
+            assert st.admission_deferrals > 0, "the guard never deferred"
+        if width == 1:
+            assert streams == dense_streams, "paged tree W=1 != chain"
+            assert st.dispatches == dense["supersteps"]
+            assert eng.host_syncs == dense["host_syncs"], \
+                (eng.host_syncs, dense["host_syncs"])
+        emit(row)
+        if width == W4 and num_pages == 512:
+            out = launches
+            profile_against(eng, f"paged tree W={W4}", blocking)
+        del eng
+        torch.cuda.empty_cache()
     return out
 
 
@@ -854,8 +971,8 @@ def phase_profile(eng, which="dense"):
         eng.serve_stream(iter(reqs))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
 
     def dev_ms(e):
         us = getattr(e, "self_device_time_total", None)
@@ -870,7 +987,7 @@ def phase_profile(eng, which="dense"):
         c[0] += dev_ms(e)
         c[1] += e.count
     top = sorted(kernels, key=dev_ms, reverse=True)[:10]
-    blocking = {e.key: e.count for e in prof.key_averages()
+    blocking = {e.key: e.count for e in events
                 if _blocking(e.key)}
     emit({"phase": "profile", "engine": which, "requests": len(reqs),
           "host_syncs": eng.host_syncs - syncs0, "blocking_calls": blocking,
@@ -883,32 +1000,39 @@ def phase_profile(eng, which="dense"):
     return blocking
 
 
+def profile_against(eng, which, blocking):
+    """Profile a served engine and hold it to the chain's blocking
+    calls: no paged or tree serve may block the host more."""
+    more = phase_profile(eng, which)
+    assert all(n <= blocking.get(k, 0) for k, n in more.items()), \
+        f"{which} serve blocks the host more: {more} vs {blocking}"
+
+
 def main():
     phase_env()
     rows = phase_kernels()
     phase_ladder()
     launches, eng, dense, dense_streams = phase_serve()
-    paged_launches, paged_eng = phase_paged_serve(eng, dense, dense_streams)
+    blocking = phase_profile(eng, "dense")
+    paged = phase_paged_serve(eng, dense, dense_streams, blocking)
     for name in ("verify_attention_paged", "flash_attention_paged"):
-        launches[name] = paged_launches[name]
-    trees = phase_tree_serve(eng, dense, dense_streams)
+        launches[name] = paged[name]
+    trees = phase_tree_serve(eng, dense, dense_streams, blocking)
     launches["verify_attention_tree"] = \
         trees[GLM["TREE_W"]][0]["verify_attention_tree"]
-    blocking = phase_profile(eng, "dense")
-    for name, other in (("paged", paged_eng),
-                        *((f"tree W={w}", e) for w, (_, e) in trees.items())):
-        more = phase_profile(other, name)
-        assert all(n <= blocking.get(k, 0) for k, n in more.items()), \
-            f"{name} serve blocks the host more: {more} vs {blocking}"
-    del eng, paged_eng, trees
-    # the paged tree mode is held above at kernel level only: no main
-    # path of this slice runs it, so it has no launch count to report
+    ptree = phase_paged_tree_serve(
+        eng, dense, dense_streams, {w: s for w, (_, s) in trees.items()},
+        blocking)
+    launches["verify_attention_paged_tree"] = \
+        ptree["verify_attention_paged_tree"]
+    del eng, trees
     for row in rows:
-        row["launches"] = None if "main_path" in row else launches[row["name"]]
+        row["launches"] = launches[row["name"]]
+        assert row["launches"] > 0, f"{row['name']} had no main-path launch"
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for row in rows if row["launches"] is not None]})
+        for row in rows]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

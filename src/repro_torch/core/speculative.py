@@ -3,7 +3,7 @@
 
 Draft-propose + target-verify + exact-match acceptance, the fused
 ``spec_decode_step`` of the serving engine, its draft-tree twin
-``tree_decode_step`` (dense caches), and ``decode_superstep``: K
+``tree_decode_step`` (dense or paged caches), and ``decode_superstep``: K
 rounds with the Eq. 5 speculate-vs-plain gate, on-device token commit,
 EOS/budget masks, the acceptance EMA and per-round signal packing.
 
@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import eagle
 from repro_torch.core.adaptive import drafter_decide
+from repro_torch.core.paging import page_slot, write_rows_paged
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -93,32 +94,41 @@ def compact_tree_cache(cache, sel, gamma: int):
     positions lengths + [1..γ], after which the cache is a chain verify
     block.  sel == 0 is a same-position copy (width 1 keeps every byte).
 
-    Out-of-range positions (an inactive or finished lane near max_len)
-    follow JAX: reads clamp to the last position, writes past it are
-    dropped (rewritten with the value already there, as ``scatter_kv``
-    does).  Dense caches only: the paged branch, through the block
-    table, is ROADMAP queue 1 (paged tree speculation)."""
-    if "page_tbl" in cache:
-        raise NotImplementedError("compact_tree_cache through a block "
-                                  "table is not ported yet (ROADMAP queue "
-                                  "1: paged tree speculation)")
+    Dense caches: out-of-range positions (an inactive or finished lane
+    near max_len) follow JAX: reads clamp to the last position, writes
+    past it are dropped (rewritten with the value already there, as
+    ``scatter_kv`` does).
+
+    Paged caches (``page_tbl`` present; pools (L, NP + 1, P, Hk, D)):
+    source and destination positions resolve through the block table
+    (``paging.page_slot``), so positions past the table and unreserved
+    entries route to the trash page, as in JAX; a live lane's path lies
+    inside its reservation and never reads the trash page.  Every row
+    is gathered before any is written.  Only the target's pools move
+    (the draft cache is rewritten by the next ``draft_extend``)."""
     lengths = cache["lengths"].long()
     dev = lengths.device
     j = torch.arange(gamma, device=dev)[None, :]
     src = lengths[:, None] + 1 + sel.long()[:, None] * gamma + j   # (B, γ)
     dst = lengths[:, None] + 1 + j
+    leaves = [leaf for name, group in cache.items()
+              if name not in ("lengths", "pad", "page_tbl")
+              for entry in group.values() for leaf in entry.values()]
+    tbl = cache.get("page_tbl")
+    if tbl is not None:                 # pools (L, NP + 1, P, Hk, D)
+        trash, p = leaves[0].shape[1] - 1, leaves[0].shape[2]
+        pg_s, sl_s = page_slot(tbl, p, src, trash)
+        pg_d, sl_d = page_slot(tbl, p, dst, trash)
+        for leaf in leaves:
+            leaf[:, pg_d, sl_d] = leaf[:, pg_s, sl_s]
+        return cache
     bidx = torch.arange(lengths.shape[0], device=dev)[:, None]
-    for name, group in cache.items():
-        if name in ("lengths", "pad"):
-            continue
-        for entry in group.values():
-            for leaf in entry.values():                 # (L, B, Smax, ...)
-                smax = leaf.shape[2]
-                rows = leaf[:, bidx, src.clamp(max=smax - 1)]
-                keep = (dst < smax)[None, :, :, None, None]
-                pos = dst % smax
-                leaf[:, bidx, pos] = torch.where(keep, rows,
-                                                 leaf[:, bidx, pos])
+    for leaf in leaves:                 # (L, B, Smax, ...)
+        smax = leaf.shape[2]
+        rows = leaf[:, bidx, src.clamp(max=smax - 1)]
+        keep = (dst < smax)[None, :, :, None, None]
+        pos = dst % smax
+        leaf[:, bidx, pos] = torch.where(keep, rows, leaf[:, bidx, pos])
     return cache
 
 
@@ -356,7 +366,6 @@ def scatter_target_cache_paged(cache, new, mask, src):
     place, other lanes to the trash page; ``lengths``/``pad`` scatter as
     rows.  Groups absent from ``new`` were written straight into the
     pools by the paged prefill (``T.prefill(..., pools=)``)."""
-    from repro_torch.core.paging import write_rows_paged
     tbl = cache["page_tbl"]
     for k, v in cache.items():
         if k in ("lengths", "pad"):

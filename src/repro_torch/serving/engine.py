@@ -45,12 +45,15 @@ Differences from the JAX engine:
     ``ServingConfig(tree_width=W)`` sets in the default policy): each
     speculative round drafts W branches of depth gamma and verifies them
     in one tree-masked target pass (``core.speculative.tree_decode_step``);
-    W = 1 is the chain bit for bit.  Dense KV only.
+    W = 1 is the chain bit for bit.  Dense or paged KV: on a paged
+    engine the verify attends through the block table in tree mode, the
+    accepted branch is compacted through the table, and each lane
+    reserves the tree's block of gamma * W + 1 rows (the chain reserves
+    gamma + 1).
   * Only this slice is ported.  Sampled decoding, chunked refill prefill
-    (and with it the paged prefix resume), tree speculation over paged
-    KV and deploy re-seeding raise ``NotImplementedError`` naming their
-    ROADMAP item; preemption, spill/restore and load shedding have no
-    knob in the port yet.
+    (and with it the paged prefix resume) and deploy re-seeding raise
+    ``NotImplementedError`` naming their ROADMAP item; preemption,
+    spill/restore and load shedding have no knob in the port yet.
 """
 from __future__ import annotations
 
@@ -280,10 +283,6 @@ class ServingEngine:
         self.tree_width = policy.speculation.tree_width
         if self.tree_width:
             T.tree_check(cfg)
-            if config.page_size > 0:
-                raise NotImplementedError(
-                    "tree_width>0 with page_size>0 is not ported yet "
-                    "(ROADMAP queue 1: paged tree speculation)")
         self.deploy_source = deploy_source
         self._deploy_seq = 0
         self.gate_arrivals = config.gate_arrivals
@@ -690,8 +689,12 @@ class ServingEngine:
     def _reservation(self, width: int, req: Request) -> int:
         """Token reservation for one lane: prompt width, decode budget,
         and the verify block that a round writes past the committed
-        length before the accept masks land (gamma + 1)."""
-        return width + req.max_new_tokens + self.gamma + 1
+        length before the accept masks land: gamma + 1 rows for the
+        chain, gamma * W + 1 for a draft tree of width W (the tree
+        commit compacts the accepted branch back into chain order, so
+        only the block itself overshoots)."""
+        block = self.gamma * max(self.tree_width, 1) + 1
+        return width + req.max_new_tokens + block
 
     def _admission_guard(self, req: Request,
                          accepted: List[Request]) -> bool:

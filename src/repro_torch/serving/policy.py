@@ -321,8 +321,7 @@ class ServingConfig:
     the policy selection, in one dataclass (``ServingEngine(config=...)``).
 
     ``prefill_chunk``, ``reseed_window`` and ``greedy=False`` name paths
-    of the JAX engine that are not ported yet, and so does ``tree_width``
-    together with ``page_size``; the engine raises
+    of the JAX engine that are not ported yet; the engine raises
     ``NotImplementedError`` for them."""
 
     # ---- engine geometry / decode
@@ -346,7 +345,8 @@ class ServingConfig:
     # tree_width >= 1 drafts width first continuations, each a γ-deep
     # chain, verifies every branch in one tree-masked target pass and
     # commits the longest accepted root path; width 1 is the chain bit
-    # for bit.  Dense KV only in the port (paged: NotImplementedError).
+    # for bit.  Dense or paged KV (a paged lane reserves the tree's
+    # γ·width + 1 verify rows past its budget).
     tree_width: int = 0
     # ---- paged KV cache (0 = dense per-lane caches)
     # page_size > 0 switches target + draft caches to block-table page

@@ -67,7 +67,9 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     (dict(reseed_window=4), "overload and reseed"),
     (dict(page_size=8, prefill_chunk=16), "chunked refill prefill"),
     (dict(prefill_chunk=16), "chunked refill prefill"),
-    (dict(tree_width=2, page_size=8), "tree speculation"),
+    # trees over paged KV are served; with chunked refill they are not
+    (dict(tree_width=2, page_size=8, prefill_chunk=16),
+     "chunked refill prefill"),
 ])
 def test_engine_unported_paths_raise(kw, item):
     from repro_torch.configs import get

@@ -71,7 +71,7 @@ def jx():
     z = jnp.zeros((1, 64, 1, 32), jnp.float32)
     jflash(z, z, z, causal=True, block_q=64, block_kv=64,
            interpret=True).block_until_ready()
-    yield dict(jnp=jnp, extract_pack=extract_pack, flash=jflash,
+    yield dict(jax=jax, jnp=jnp, extract_pack=extract_pack, flash=jflash,
                verify=jverify, attn=jattn)
     torch.set_num_threads(threads)
 
@@ -89,6 +89,29 @@ def _f32(x):
     return np.asarray(x, np.float32)
 
 
+def _attention_f64(q, k, v, *, causal, window):
+    """Masked GQA softmax attention in float64 numpy over the torch
+    inputs as given (after their dtype's rounding)."""
+    qf, kf, vf = (np.asarray(x.float().numpy(), np.float64) for x in (q, k, v))
+    s, hq, d = qf.shape[1], qf.shape[2], qf.shape[3]
+    g = hq // kf.shape[2]
+    qi, ki = np.arange(s)[:, None], np.arange(s)[None, :]
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    out = np.zeros_like(qf)
+    for h in range(hq):
+        sc = np.einsum("bqd,bkd->bqk", qf[:, :, h], kf[:, :, h // g]) \
+            / np.sqrt(d)
+        sc = np.where(mask, sc, -np.inf)
+        p = np.exp(sc - sc.max(-1, keepdims=True))
+        out[:, :, h] = np.einsum("bqk,bkd->bqd", p / p.sum(-1, keepdims=True),
+                                 vf[:, :, h // g])
+    return out
+
+
 # ------------------------------------------------ plain versions vs JAX
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,hq,hk,d,causal,window", FLASH_SHAPES)
@@ -100,6 +123,18 @@ def test_flash_ref_vs_pallas(jx, b, s, hq, hk, d, causal, window, dtype):
     want = jx["flash"](q, k, v, causal=causal, window=window, block_q=64,
                        block_kv=64, interpret=True)
     got = flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    # each side against a float64 oracle first, so that a failure names
+    # the side that departs
+    oracle = _attention_f64(tq, tk, tv, causal=causal, window=window)
+    cap = torch.backends.cpu.get_cpu_capability()
+    state = (f"torch {torch.__version__} {cap} x{torch.get_num_threads()}"
+             f", jax {jx['jax'].__version__}")
+    for name, x in (("Pallas (interpret)", want), ("port plain", got)):
+        off = np.abs(_f32(x) - oracle) > 2 * _tol(dtype)["atol"]
+        np.testing.assert_allclose(
+            _f32(x), oracle, **_tol(dtype),
+            err_msg=f"{name} vs float64 ({state}); query rows off: "
+                    f"{sorted(set(np.nonzero(off)[1].tolist()))[:16]}")
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
 
 

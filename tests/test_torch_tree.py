@@ -1,4 +1,5 @@
-"""The port's greedy tree speculation (dense KV) against the JAX package.
+"""The port's greedy tree speculation, over dense and paged KV, against
+the JAX package and against the port's own chain and dense tree.
 
 * The tree-mode plain versions of the verify kernel, dense and paged,
   against the JAX Pallas kernel (interpret mode) and the JAX tree oracle
@@ -8,10 +9,18 @@
   accepted branch (lanes near max_len included), the tree draft and the
   tree step against JAX; width 1 against the port's own chain, bit for
   bit.
+* Paged: ``compact_tree_cache`` through a block table gives exactly
+  JAX's pools (sel > 0, and lanes inactive or unreserved near max_len,
+  whose rows route to the trash page; sel == 0 keeps every byte); a
+  paged tree step is the dense tree step on the gathered view, and at
+  width 1 the paged chain step, bit for bit.
 * The engine: width-2 streams equal the JAX engine's on its prompts and
   on the request sets of tests/test_tree.py; width-1 streams equal chain
   streams; the port's ladder (stepwise == superstep == stream == wave)
-  at width 2.
+  at width 2.  Paged: width-2 streams equal the dense tree's (superstep
+  and stepwise) and the JAX paged tree engine's within one stream; width
+  1 equals the paged chain; the reservation, deferrals and peak pages
+  equal JAX's; no page leaks after a drain; the same ladder.
 
 Every model-level test runs on one weight set: tide_tiny briefly
 pretrained on the corpus of tests/test_torch_engine.py, with a briefly
@@ -19,7 +28,8 @@ trained draft, so that branches other than 0 win.
 
 Tolerances: fp32 rtol/atol 2e-5, bf16 2e-2 (tests/test_kernels.py).
 Streams, counts, ``sel``, slots and compacted cache bytes are compared
-exactly.  Fixed seeds throughout."""
+exactly; a stream may differ from JAX's only at a near-tie of the
+target's top-2 logits.  Fixed seeds throughout."""
 import functools
 
 import numpy as np
@@ -56,6 +66,7 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.policy import (ServingConfig,  # noqa: E402
                                         SpeculationPolicy)
 from repro_torch.serving.request import Request  # noqa: E402
+from test_torch_paging import _assert_streams_match  # noqa: E402
 
 TREE_SHAPES = [(1, 3, 0), (2, 3, 0), (3, 2, 0), (2, 4, 6), (4, 2, 5)]
 DTYPES = ["float32", "bfloat16"]
@@ -63,6 +74,8 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 GAMMA = 3
 START_LEN = 64           # max_len of the step-level tests' caches
 NEAR_TIE = 1e-4          # top-2 logit gap below which a flip is a tie
+PAGE = 8                 # page size of the paged tests
+LENS, BUDGETS = [5, 30, 11, 23, 8, 17], [6, 4, 8, 5, 7, 6]
 
 
 def _tol(dtype):
@@ -268,9 +281,70 @@ def test_compact_tree_cache_vs_jax():
         np.testing.assert_array_equal(got["body"]["pos0"][k].numpy(),
                                       np.asarray(want["body"]["pos0"][k]))
     assert not np.array_equal(got["body"]["pos0"]["k"].numpy(), leaf)
-    with pytest.raises(NotImplementedError, match="paged tree"):
-        spec.compact_tree_cache(dict(tc, page_tbl=torch.zeros((6, 2))),
-                                torch.tensor(sel), g)
+
+
+def _paged_inputs(seed):
+    """Two layers of pools (L, NP + 1, P, Hk, D) behind a shuffled table:
+    six lanes of max_len 32 (4 pages each, 24 pages + trash), where lane
+    3 maps only its first 2 pages and lane 5 none (unreserved entries
+    name the trash page)."""
+    rng = np.random.default_rng(seed)
+    b, n_tbl, hk, d = 6, 4, 2, 8
+    n_pages = b * n_tbl
+    pool = rng.normal(size=(2, n_pages + 1, PAGE, hk, d)).astype(np.float32)
+    tbl = rng.permutation(n_pages).reshape(b, n_tbl).astype(np.int32)
+    tbl[3, 2:] = n_pages
+    tbl[5] = n_pages
+    return pool, tbl
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compact_tree_cache_paged_vs_jax(seed):
+    """Exact against JAX's paged branch on every mapped page, with
+    paths past max_len (reads and writes through the trash page), an
+    unreserved lane and one far beyond the table; sel == 0 keeps every
+    byte, the trash page included."""
+    w, g, smax = 3, GAMMA, 4 * PAGE
+    pool, tbl = _paged_inputs(seed)
+    lengths = np.array([4, 17, smax - w * g - 1, 9, smax - 2, 70], np.int32)
+    sel = np.array([2, 1, 2, 2, 1, 0], np.int32)
+    n_pages = tbl.size
+
+    def jcache(p):
+        return {"lengths": jnp.asarray(lengths),
+                "pad": jnp.zeros(6, jnp.int32), "page_tbl": jnp.asarray(tbl),
+                "body": {"pos0": {"k": jnp.asarray(p),
+                                  "v": jnp.asarray(-p)}}}
+
+    def tcache(p):
+        return {"lengths": torch.tensor(lengths),
+                "pad": torch.zeros(6, dtype=torch.int32),
+                "page_tbl": torch.tensor(tbl),
+                "body": {"pos0": {"k": torch.tensor(p),
+                                  "v": torch.tensor(-p)}}}
+
+    want = jspec.compact_tree_cache(jcache(pool), jnp.asarray(sel), g)
+    got = spec.compact_tree_cache(tcache(pool), torch.tensor(sel), g)
+    for k in ("k", "v"):
+        # several lanes may route a write to the trash page in one call;
+        # which lands there is undefined in both frameworks
+        np.testing.assert_array_equal(
+            got["body"]["pos0"][k].numpy()[:, :n_pages],
+            np.asarray(want["body"]["pos0"][k])[:, :n_pages])
+    moved = got["body"]["pos0"]["k"].numpy()
+    assert not np.array_equal(moved[:, :n_pages], pool[:, :n_pages])
+    # lanes 0 and 1 moved their branch rows through the table
+    for b_ in (0, 1):
+        row = torch.tensor(tbl[b_:b_ + 1])
+        view = gather_view(torch.tensor(moved[0]), row)
+        src = lengths[b_] + 1 + sel[b_] * g + np.arange(g)
+        orig = gather_view(torch.tensor(pool[0]), row)
+        assert torch.equal(view[0, lengths[b_] + 1:lengths[b_] + 1 + g],
+                           orig[0, src])
+    same = spec.compact_tree_cache(tcache(pool),
+                                   torch.zeros(6, dtype=torch.int32), g)
+    assert np.array_equal(same["body"]["pos0"]["k"].numpy(), pool)
+    assert np.array_equal(same["body"]["pos0"]["v"].numpy(), -pool)
 
 
 # ============================================ model, draft, step
@@ -451,15 +525,115 @@ def test_tree_step_vs_jax(models):
                     **TOL)
 
 
+
+# ============================================ step, paged vs dense
+def _to_paged(cache, dcache, seed):
+    """Paged copies of dense target and draft caches: every lane's whole
+    window mapped through one shuffled table (B · max_len / P pages +
+    trash), so each pool's gathered view is the dense leaf."""
+    lengths = cache["lengths"]
+    b, smax = lengths.shape[0], dcache["k"].shape[1]
+    n_tbl = smax // PAGE
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(b * n_tbl))
+    tbl = perm.reshape(b, n_tbl).to(torch.int32)
+
+    def pool(leaf):                              # (..., B, Smax, Hk, D)
+        lead = leaf.shape[:-4]
+        out = torch.zeros(lead + (b * n_tbl + 1, PAGE) + leaf.shape[-2:],
+                          dtype=leaf.dtype)
+        out[..., perm, :, :, :] = leaf.reshape(
+            lead + (b * n_tbl, PAGE) + leaf.shape[-2:])
+        return out
+
+    pc = {k: (v.clone() if k in ("lengths", "pad") else
+              {pos: {n: pool(x) for n, x in e.items()}
+               for pos, e in v.items()})
+          for k, v in cache.items()}
+    pc["page_tbl"] = tbl
+    pdc = dict(dcache, k=pool(dcache["k"]), v=pool(dcache["v"]),
+               tbl=tbl.clone(), lengths=dcache["lengths"].clone(),
+               pad=dcache["pad"].clone())
+    return pc, pdc
+
+
+def _views_equal(dense, paged, tbl):
+    """Each dense leaf equals its pool's gathered view (every position)."""
+    for name, group in dense.items():
+        if name in ("lengths", "pad"):
+            assert torch.equal(group, paged[name]), name
+            continue
+        for pos, entry in group.items():
+            for leaf, x in entry.items():
+                for i in range(x.shape[0]):
+                    assert torch.equal(x[i], gather_view(
+                        paged[name][pos][leaf][i], tbl)), (name, leaf, i)
+
+
+@pytest.mark.parametrize("width", [1, 2, 3])
+def test_paged_tree_step_equals_dense_on_view(models, width):
+    """Four rounds of ``tree_decode_step`` on paged caches give the dense
+    tree step's outputs bit for bit, and the pools' gathered views stay
+    the dense caches, target and draft (a branch other than 0 wins in
+    some round at width 3 on these weights)."""
+    m = models
+    _, _, (tc, tdc, carry) = _start(m)
+    pc, pdc = _to_paged(tc, tdc, width)
+    tbl = pc["page_tbl"]
+    pcarry = _clone(carry)
+    won = False
+    for i in range(4):
+        do = spec.tree_decode_step(m["cfg"], m["dcfg"], m["tp"], m["tdp"],
+                                   tc, tdc, carry, gamma=GAMMA, width=width)
+        po = spec.tree_decode_step(m["cfg"], m["dcfg"], m["tp"], m["tdp"],
+                                   pc, pdc, pcarry, gamma=GAMMA, width=width)
+        for f in ("tokens", "n_commit", "n_acc", "sel", "target_logits",
+                  "captures", "block", "accept_mask"):
+            assert torch.equal(do[f], po[f]), (i, f)
+        won |= bool((do["sel"] > 0).any())
+        tc, tdc, carry = do["cache"], do["dcache"], do["carry"]
+        pc, pdc, pcarry = po["cache"], po["dcache"], po["carry"]
+        _views_equal(tc, pc, tbl)
+        for leaf in ("k", "v"):
+            assert torch.equal(tdc[leaf], gather_view(pdc[leaf], pdc["tbl"]))
+        assert torch.equal(tdc["lengths"], pdc["lengths"])
+    if width == 3:
+        assert won, "no branch >= 1 won: the compaction moved no row"
+
+
+def test_paged_tree_step_width1_bitwise_paged_chain(models):
+    """Width-1 ``tree_decode_step`` on paged caches is the paged
+    ``spec_decode_step`` bit for bit over four rounds: commits, logits,
+    captures and every pool byte, target and draft."""
+    m = models
+    _, _, (tc, tdc, carry) = _start(m)
+    pa, pda = _to_paged(tc, tdc, 5)
+    pb, pdb = _clone(pa), _clone(pda)
+    ca, cb = _clone(carry), _clone(carry)
+    for i in range(4):
+        oa = spec.spec_decode_step(m["cfg"], m["dcfg"], m["tp"], m["tdp"],
+                                   pa, pda, ca, gamma=GAMMA)
+        ob = spec.tree_decode_step(m["cfg"], m["dcfg"], m["tp"], m["tdp"],
+                                   pb, pdb, cb, gamma=GAMMA, width=1)
+        for f in ("tokens", "n_commit", "n_acc", "target_logits", "captures",
+                  "block", "accept_mask"):
+            assert torch.equal(oa[f], ob[f]), (i, f)
+        assert _eq_tree(oa["cache"], ob["cache"]), i
+        assert _eq_tree(oa["dcache"], ob["dcache"]), i
+        pa, pda, ca = oa["cache"], oa["dcache"], oa["carry"]
+        pb, pdb, cb = ob["cache"], ob["dcache"], ob["carry"]
+
+
 # ================================================================ engine
-def _port_engine(m, width, rounds, *, policy=None):
+def _port_engine(m, width, rounds, *, policy=None, **kw):
     conf = ServingConfig(batch_size=2, max_len=96, gamma=GAMMA,
-                         superstep_rounds=rounds, tree_width=width)
+                         superstep_rounds=rounds, tree_width=width, **kw)
     return ServingEngine(m["cfg"], m["tp"], m["dcfg"], m["tdp"],
                          config=conf, device="cpu", policy=policy)
 
 
 def _serve(eng, prompts, budgets, stream=True):
+    """Serve on the port; paged engines are leak-checked after
+    ``release_prefix_cache``."""
     reqs = [Request(prompt=list(p), max_new_tokens=n)
             for p, n in zip(prompts, budgets)]
     if stream:
@@ -468,6 +642,9 @@ def _serve(eng, prompts, budgets, stream=True):
         for i in range(0, len(reqs), eng.batch):
             eng.serve_wave(reqs[i:i + eng.batch])
     assert all(r.finish_t is not None for r in reqs)
+    if eng.allocator is not None:
+        eng.release_prefix_cache()
+        eng.allocator.assert_clean()
     return [list(r.generated) for r in reqs]
 
 
@@ -571,10 +748,12 @@ def test_tree_port_ladder(models):
 
 def test_tree_engine_knobs(models):
     m = models
-    with pytest.raises(NotImplementedError, match="paged tree speculation"):
-        ServingEngine(m["cfg"], m["tp"], m["dcfg"], m["tdp"], device="cpu",
-                      config=ServingConfig(batch_size=2, max_len=96,
-                                           page_size=8, tree_width=2))
+    # trees over paged KV are served (the paged engine tests below)
+    paged = ServingEngine(m["cfg"], m["tp"], m["dcfg"], m["tdp"],
+                          device="cpu",
+                          config=ServingConfig(batch_size=2, max_len=96,
+                                               page_size=8, tree_width=2))
+    assert paged.paged and paged.tree_width == 2
     assert ServingConfig(tree_width=3).make_policy().speculation \
         .tree_width == 3
     eng = _port_engine(m, 0, 8, policy=ServingConfig().make_policy())
@@ -587,3 +766,111 @@ def test_tree_engine_knobs(models):
     assert _port_engine(m, 2, 8, policy=pol).tree_width == 2
     with pytest.raises(ValueError, match="speculation policy"):
         _port_engine(m, 1, 8, policy=pol)
+
+
+# ========================================================= engine, paged
+def _jax_paged_tree(m, prompts, budgets, **kw):
+    """One stream of a stepwise JAX paged tree engine (width 2, P 8,
+    prefix sharing on), leak-checked after the drain."""
+    conf = dict(batch_size=2, max_len=96, gamma=GAMMA, superstep_rounds=0,
+                tree_width=2, page_size=PAGE, share_prefix=True)
+    conf.update(kw)
+    eng = JaxEngine(m["jcfg"], m["jp"], m["jdcfg"], m["jdp"],
+                    config=JaxConfig(**conf))
+    reqs = [JaxRequest(prompt=list(p), max_new_tokens=n)
+            for p, n in zip(prompts, budgets)]
+    eng.serve_stream(iter(reqs))
+    eng.release_prefix_cache()
+    eng.allocator.assert_clean()
+    return [list(r.generated) for r in reqs], eng
+
+
+@pytest.mark.parametrize("rounds", [4, 0])
+def test_paged_tree_streams_equal_dense(models, sels, rounds):
+    """tests/test_tree.py::test_tree_width2_paged_equals_dense (greedy):
+    width-2 paged streams equal the dense tree's, superstep and
+    stepwise, with no page leaked after the drain; rows moved (sel > 0
+    in some round)."""
+    m = models
+    prompts, budgets = _test_tree_inputs(m["cfg"], LENS, BUDGETS, 3)
+    dense = _serve(_port_engine(m, 2, rounds), prompts, budgets)
+    del sels[:]
+    eng = _port_engine(m, 2, rounds, page_size=PAGE)
+    paged = _serve(eng, prompts, budgets)
+    assert paged == dense
+    assert [len(s) for s in paged] == budgets
+    assert any(bool((s > 0).any()) for s in sels), "no branch >= 1 won"
+    assert eng.stats.pages_peak > 0
+
+
+def test_paged_tree_width1_equals_paged_chain(models):
+    m = models
+    prompts, budgets = _test_tree_inputs(m["cfg"], LENS, BUDGETS, 21)
+    def paged(width, rounds):
+        return _serve(_port_engine(m, width, rounds, page_size=PAGE),
+                      prompts, budgets)
+
+    chain = paged(0, 4)
+    assert paged(1, 4) == chain and paged(1, 0) == chain
+
+
+def test_paged_tree_streams_equal_jax_paged_tree(models):
+    """Width-2 streams of the paged tree engine equal the JAX paged tree
+    engine's within one stream (P 8, prefix sharing on), with the same
+    counters."""
+    m = models
+    prompts, budgets = _test_tree_inputs(m["cfg"], LENS, BUDGETS, 3)
+    want, jeng = _jax_paged_tree(m, prompts, budgets)
+    eng = _port_engine(m, 2, 0, page_size=PAGE)
+    got = _serve(eng, prompts, budgets)
+    _assert_streams_match(m, prompts, got, want)
+    for k in ("admission_deferrals", "pages_peak", "prefix_hits",
+              "completed"):
+        assert getattr(eng.stats, k) == getattr(jeng.stats, k), k
+
+
+def test_paged_tree_reservation_and_deferrals_equal_jax(models):
+    """The tree reservation (width + budget + γ·W + 1) is JAX's for the
+    same request; with a pool of 4 pages (one lane's tree reservation)
+    the guard defers, and the deferrals and peak pages equal the JAX
+    paged tree engine's (the inputs of
+    tests/test_torch_paging.py::test_paged_admission_defers_equal_jax)."""
+    m = models
+    lens = [int(x) for x in np.random.default_rng(9).integers(3, 13, size=8)]
+    budgets = [int(x) for x in
+               np.random.default_rng(10).integers(3, 9, size=8)]
+    rng = np.random.default_rng(33)
+    prompts = [[int(t) for t in rng.integers(1, m["cfg"].vocab_size, n)]
+               for n in lens]
+    eng = _port_engine(m, 2, 0, page_size=PAGE, num_pages=4)
+    chain = _port_engine(m, 0, 0, page_size=PAGE, num_pages=4)
+    want, jeng = _jax_paged_tree(m, prompts, budgets, num_pages=4)
+    for width, n in ((8, 6), (32, 4), (24, 17), (40, 1)):
+        req = Request(prompt=[1] * 3, max_new_tokens=n)
+        jreq = JaxRequest(prompt=[1] * 3, max_new_tokens=n)
+        assert eng._reservation(width, req) == \
+            jeng._reservation(width, jreq) == width + n + 2 * GAMMA + 1
+        assert chain._reservation(width, req) == width + n + GAMMA + 1
+    got = _serve(eng, prompts, budgets)
+    _assert_streams_match(m, prompts, got, want)
+    assert eng.stats.admission_deferrals > 0
+    assert eng.stats.admission_deferrals == jeng.stats.admission_deferrals
+    assert eng.stats.pages_peak == jeng.stats.pages_peak <= 4
+    assert eng.stats.completed == len(prompts)
+
+
+def test_paged_tree_port_ladder(models):
+    """Width 2, paged, inside the port: stepwise == superstep (K 8) on
+    waves, == a stream whose supersteps (K 3) end mid-request, with and
+    without prefix sharing; the allocator is clean after each drain."""
+    m = models
+    args = (m["prompts"], m["budgets"])
+    g0 = _serve(_port_engine(m, 2, 0, page_size=PAGE), *args, stream=False)
+    e8 = _port_engine(m, 2, 8, page_size=PAGE)
+    g8 = _serve(e8, *args, stream=False)
+    gs3 = _serve(_port_engine(m, 2, 3, page_size=PAGE), *args)
+    gp = _serve(_port_engine(m, 2, 3, page_size=PAGE, share_prefix=False),
+                *args)
+    assert g8 == g0 and gs3 == g0 and gp == g0
+    snap = e8.metrics.snapshot()
+    assert snap["spec.tree_width"] == 2 and snap["paging.pages_in_use"] == 0
