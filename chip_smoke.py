@@ -22,7 +22,14 @@ Phases, one JSON line each:
            and paged, against its plain version; W = 1 bit for bit
            against the chain kernel, paged bit for bit against dense on
            the gathered view, also in a window > 0 sweep at a small
-           width; yardstick SDPA with the explicit tree mask.
+           width; yardstick SDPA with the explicit tree mask.  Each
+           attention row is also held to pad-shift invariance: one
+           lane's prompt at pads 0, 5, 17, 31, 32, 100 of rows 0 and 40
+           wider gives the same rows bit for bit (pad_shift_equal).  The
+           prefill rows name their path (prefill_path:
+           tensor_core_bf16) and the error of a one-bf16-P emulation
+           (p_bf16_rel_l2_emulated); every row with a library call gets
+           ms_over_library_ms.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
            streams, dense and paged (page 16), tree speculation at
@@ -35,13 +42,22 @@ Phases, one JSON line each:
            64-512, 64 new tokens; requests 1, 3, 5 and 7 share one
            prompt) with serve_stream.  Every kernel's launch count is
            zeroed just before and read just after.
+  cobatch  the serve's shortest prompt refilled alone and beside its
+           longest (the engine's own refill packing: another pad, width
+           and row count) through glm4-9b at full depth, op by op: the
+           first op whose rows of the prompt depart (verdict, or none)
+           and every op that departs with equal input rows; no attention
+           op may depart.
   paged_serve  the same engine configuration with page_size 16 on the
            same weights and requests, twice: with the dense footprint of
            512 pages (no admission can defer, so the schedule is the
            dense serve's: streams, supersteps and host syncs must equal
            it exactly, prefix hits > 0), then with 256 pages (the
            admission guard defers; every request must finish, the peak
-           must stay within the pool, every paged kernel must launch).
+           must stay within the pool, every paged kernel must launch; a
+           stream that differs from dense gets its first flip and top-2
+           logit gap, and with a cobatch verdict of none all 16 must
+           equal dense).
            The allocator is clean at drain in both.
   tree_serve  the serve's configuration, weights and requests with
            tree speculation, W = 1 (streams, supersteps and host syncs
@@ -55,7 +71,9 @@ Phases, one JSON line each:
            dense footprint of 512 pages (W = 1's streams, supersteps
            and host syncs must equal the chain serve's, W = 4's streams
            the dense W = 4 tree serve's), then W = 4 with 256 pages
-           (the tree's larger reservation makes the guard defer).  Every
+           (the tree's larger reservation makes the guard defer; its
+           first flip against the dense W = 4 tree is reported, and with a
+           cobatch verdict of none its streams must equal it).  Every
            target verify is one launch per layer of the paged kernel in
            tree mode (layers x speculative rounds, asserted), the draft
            attends through the paged kernel in chain mode, the dense
@@ -226,7 +244,9 @@ def phase_kernels():
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn/kernel.py:167",
+        prefill_path="tensor_core_bf16",
         max_abs_err=err, rel_l2_err=rel,
+        p_bf16_rel_l2_emulated=_p_bf16_rel_l2(q, k, v, mask, ref, valid),
         ms=cuda_ms(lambda: flash_attention(q, k, v, pad)),
         plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, pad), iters=5),
         bound_ms=b_ms, bound_by=b_by,
@@ -363,6 +383,7 @@ def phase_kernels():
         name="flash_attention_paged", route="cuda",
         source="src/repro_torch/csrc/flash_attn_paged.cu",
         replaces="src/repro/kernels/flash_attn/kernel.py:115",
+        prefill_path="tensor_core_bf16",
         max_abs_err=err, rel_l2_err=rel, equal_dense=True,
         ms=cuda_ms(lambda: flash_attention_paged(q, kpool, vpool, tb, pad)),
         plain_ms=cuda_ms(lambda: flash_attention_paged_ref(
@@ -399,8 +420,59 @@ def phase_kernels():
         plain_ms=cuda_ms(lambda: extract_pack_ref(feats, toks, msk), iters=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"feats {tuple(feats.shape)} bf16"))
+    for row in rows:
+        kinds = SHIFT_KINDS_OF[row["name"]]
+        row["pad_shift_equal"] = _pad_shift_equal(kinds) if kinds else None
+        if row["library_ms"]:
+            row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
     emit({"phase": "kernels", "kernels": rows})
     return rows
+
+
+# the pad-shift placements (repro_torch.obs.cobatch.placed_rows) each
+# kernel row is held to; extract_pack has no pad
+SHIFT_KINDS_OF = {
+    "flash_attention": ("prefill",), "flash_attention_paged": ("prefill_paged",),
+    "verify_attention": ("verify4", "verify1"),
+    "verify_attention_paged": ("verify_paged4", "verify_paged1"),
+    "verify_attention_tree": ("tree",),
+    "verify_attention_paged_tree": ("tree_paged",), "extract_pack": ()}
+
+
+def _pad_shift_equal(kinds) -> bool:
+    """One lane's prompt (150 rows, glm4-9b heads, bf16) at pads 0, 5,
+    17, 31, 32, 100 of batch rows 0 and 40 wider, beside other lanes:
+    its rows of each kernel must be equal bit for bit."""
+    from repro_torch.obs.cobatch import lane_inputs, pad_shift_departure
+    lane = lane_inputs(150, GLM["HQ"], GLM["HK"], GLM["D"], torch.bfloat16,
+                       torch.device("cuda"), 81)
+    for kind in kinds:
+        moved = pad_shift_departure(kind, lane, extras=(0, 40))
+        assert moved is None, \
+            f"{kind}: a lane's rows moved with its pad at (pad, +) {moved}"
+    return True
+
+
+def _p_bf16_rel_l2(q, k, v, mask, ref, valid) -> float:
+    """Relative L2 error, against the plain version, of the same
+    attention with P rounded to bf16 before P·V (the row sums kept in
+    fp32): what a tensor-core P·V with one bf16 P would read.  The
+    kernel splits P into two bf16 halves instead."""
+    import math
+    g = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    sc = torch.einsum("bthd,bshd->bhts", q.float(), kf) / math.sqrt(q.shape[3])
+    sc = sc.masked_fill(~mask[:, None], float("-inf"))
+    mx = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx)))
+    p = p.masked_fill(~mask[:, None], 0.0)
+    den = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhts,bshd->bthd", p.to(torch.bfloat16).float(), vf)
+    out = (out / torch.where(den > 0, den, torch.ones_like(den)).transpose(1, 2)
+           ).to(q.dtype)
+    a, b = out[valid].float(), ref[valid].float()
+    return float((a - b).norm() / b.norm())
 
 
 def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
@@ -718,7 +790,53 @@ def phase_serve():
     return launches, eng, summary, [list(r.generated) for r in reqs]
 
 
-def phase_paged_serve(dense_eng, dense, dense_streams, blocking):
+def _first_flip(eng, reqs, streams, ref_streams):
+    """The first request whose stream differs from ``ref_streams``, the
+    step where it flips, and the target's top-2 logit gap there: one
+    prefill of prompt + the common prefix."""
+    from repro_torch.models import transformer as T
+    i = next(n for n, (a, b) in enumerate(zip(streams, ref_streams))
+             if a != b)
+    a, b = streams[i], ref_streams[i]
+    j = next(n for n in range(len(a)) if a[n] != b[n])
+    seq = torch.tensor([reqs[i].prompt + b[:j]], dtype=torch.int32,
+                       device=eng.device)
+    top = T.prefill(eng.cfg, eng.params, seq)["logits"][0].topk(2).values
+    return {"request": i, "step": j, "top2_logit_gap": float(top[0] - top[1])}
+
+
+def phase_cobatch(eng):
+    """One prompt of the serve (its shortest) refilled alone and beside
+    the serve's longest prompt, packed by the serving engine's own refill
+    (``_refill_arrays``: another left pad, width and row count), through
+    glm4-9b at full depth: the first op whose rows of that prompt depart
+    (layer by layer: hidden states, K/V rows, last-position logits), or
+    none, and every op that departs with its inputs' rows made equal
+    (``repro_torch.obs.cobatch``).  No attention op may depart.  Returns
+    the first departing op or None."""
+    from repro_torch.obs.cobatch import cobatch_diff
+    from repro_torch.serving.request import Request
+    prompts = sorted((r.prompt for r in _serve_requests(eng.cfg.vocab_size)),
+                     key=len)
+    short, long_ = prompts[0], prompts[-1]
+
+    def batch(ps):
+        reqs = [Request(prompt=list(p), max_new_tokens=1) for p in ps]
+        for i, r in enumerate(reqs):
+            r.sid = i
+        return eng._refill_arrays(list(enumerate(reqs)))[:2]
+
+    d = cobatch_diff(eng.cfg, eng.params, (*batch([short]), 0),
+                     (*batch([long_, short]), 1))
+    attn = [n for n in d["departing_alone"] if n.endswith(".attention")]
+    emit({"phase": "cobatch", "verdict": d["first_departing_op"] or "none",
+          **d, "departing_alone_count": len(d["departing_alone"]),
+          "departing_alone": d["departing_alone"][:12]})
+    assert not attn, f"attention departs with its batch: {attn}"
+    return d["first_departing_op"]
+
+
+def phase_paged_serve(dense_eng, dense, dense_streams, blocking, cobatch):
     """The serve on a paged engine (page 16) with the same weights and
     requests: first with the dense footprint of pages, where the schedule
     must be the dense serve's exactly, then with half of it, whose engine
@@ -749,6 +867,11 @@ def phase_paged_serve(dense_eng, dense, dense_streams, blocking):
         assert launches["flash_attention"] == 0, launches
         if name == "half":
             assert st.admission_deferrals > 0, "the guard never deferred"
+            # the deferral moves prompts to other refill batches; with no
+            # op of the prefill departing with its batch the streams hold
+            if cobatch is None:
+                assert streams == dense_streams, \
+                    "half-pool streams != dense though no op departs"
         if name == "dense_footprint":
             assert st.admission_deferrals == 0
             assert streams == dense_streams, "paged streams != dense streams"
@@ -764,6 +887,9 @@ def phase_paged_serve(dense_eng, dense, dense_streams, blocking):
               "streams_equal_dense": streams == dense_streams,
               "requests_equal_dense": sum(
                   a == b for a, b in zip(streams, dense_streams)),
+              **({"first_flip": _first_flip(eng, reqs, streams,
+                                            dense_streams)}
+                 if streams != dense_streams else {}),
               "host_syncs_per_superstep_dense":
                   dense["host_syncs_per_superstep"],
               "nvidia_smi": smi()})
@@ -789,7 +915,6 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
     and freed before the next is built.  Returns {W: (launches,
     streams)}."""
     from repro_torch.core.signals import SignalExtractor, SignalStore
-    from repro_torch.models import transformer as T
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.policy import ServingConfig
     out = {}
@@ -831,17 +956,8 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
             assert summary["host_syncs_per_superstep"] <= \
                 dense["host_syncs_per_superstep"], "tree serve syncs more"
             if diff:
-                # the target's top-2 gap at the first flipped token: one
-                # prefill of prompt + the common prefix
-                i = diff[0]
-                a, b = streams[i], dense_streams[i]
-                j = next(n for n in range(len(a)) if a[n] != b[n])
-                seq = torch.tensor([reqs[i].prompt + b[:j]], dtype=torch.int32,
-                                   device=eng.device)
-                top = T.prefill(eng.cfg, eng.params, seq)["logits"][0] \
-                    .topk(2).values
-                row["first_flip"] = {"request": i, "step": j,
-                                     "top2_logit_gap": float(top[0] - top[1])}
+                row["first_flip"] = _first_flip(eng, reqs, streams,
+                                                dense_streams)
         out[width] = (launches, streams)
         emit(row)
         profile_against(eng, f"tree W={width}", blocking)
@@ -851,7 +967,7 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
 
 
 def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
-                           blocking):
+                           blocking, cobatch):
     """Greedy tree speculation over paged KV (page 16) on the serve
     phase's weights and requests: W = 1 and W = 4 with the dense
     footprint of 512 pages, then W = 4 with 256.  The target verify of
@@ -923,6 +1039,12 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
                 f"paged tree W={width} streams != dense tree W={width}"
         else:
             assert st.admission_deferrals > 0, "the guard never deferred"
+            if cobatch is None:
+                assert streams == tree_streams[width], \
+                    "half-pool tree streams != dense tree though no op departs"
+            if streams != tree_streams[width]:
+                row["first_flip_vs_dense_tree"] = _first_flip(
+                    eng, reqs, streams, tree_streams[width])
         if width == 1:
             assert streams == dense_streams, "paged tree W=1 != chain"
             assert st.dispatches == dense["supersteps"]
@@ -939,7 +1061,7 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "attn_rows" in n:
+    if "attn_rows" in n or "prefill_rows" in n:
         return "attention kernels (port)"
     if "extract_pack" in n:
         return "extract_pack (port)"
@@ -1013,8 +1135,9 @@ def main():
     rows = phase_kernels()
     phase_ladder()
     launches, eng, dense, dense_streams = phase_serve()
+    cobatch = phase_cobatch(eng)
     blocking = phase_profile(eng, "dense")
-    paged = phase_paged_serve(eng, dense, dense_streams, blocking)
+    paged = phase_paged_serve(eng, dense, dense_streams, blocking, cobatch)
     for name in ("verify_attention_paged", "flash_attention_paged"):
         launches[name] = paged[name]
     trees = phase_tree_serve(eng, dense, dense_streams, blocking)
@@ -1022,7 +1145,7 @@ def main():
         trees[GLM["TREE_W"]][0]["verify_attention_tree"]
     ptree = phase_paged_tree_serve(
         eng, dense, dense_streams, {w: s for w, (_, s) in trees.items()},
-        blocking)
+        blocking, cobatch)
     launches["verify_attention_paged_tree"] = \
         ptree["verify_attention_paged_tree"]
     del eng, trees

@@ -1,7 +1,7 @@
-// Shared device code of the attention kernels (flash_attn.cu,
-// verify_attn.cu and their paged twins flash_attn_paged.cu,
-// verify_attn_paged.cu): masked GQA attention over one lane's KV rows
-// with an fp32 online softmax.
+// Shared device code of the attention kernels (verify_attn.cu, its paged
+// twin verify_attn_paged.cu, and the float32 path of flash_attn.cu and
+// flash_attn_paged.cu, whose bfloat16 path is prefill_rows.cuh): masked
+// GQA attention over one lane's KV rows with an fp32 online softmax.
 //
 // K/V addressing is a compile-time policy (the Paged template flag), and
 // so is the tree mode (the Tree flag, below):
@@ -27,6 +27,12 @@
 // verify_attn.cu for what that costs).
 // Four warps, four rows per warp; keys are walked in tiles of 32, one key
 // per lane for the scores, then one D/32-column slice per lane for P·V.
+// The tiles are anchored at the lane's pad: tile j holds keys
+// [pad + 32j, pad + 32j + 32), and a window starts the walk at the tile
+// of this grid that holds the block's lowest visible key.  So a lane's
+// visible keys meet the same lanes of the same tiles, and every row's
+// sums run in the same order, whatever pad its prompt gets in a batch:
+// a row's result does not depend on which prompts share its batch.
 //
 // Masking.  A row at position qpos sees key kpos iff
 //   pad <= kpos < S, (!causal || kpos <= qpos), (!window || kpos > qpos - window).
@@ -239,6 +245,11 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
   }
   if (a.window > 0) kv_lo = max(kv_lo, qp_lo - a.window + 1);
   const int kv_hi = a.causal ? min(a.S - 1, qp_hi) : a.S - 1;
+  // key tiles start at the lane's pad (the tree's in-block keys below
+  // it start at kv_lo), so a lane's keys fall in the same tiles, and its
+  // sums in the same order, wherever its prompt sits in the batch
+  const int anchor = min(max(pad, 0), kv_lo);
+  const int k_first = anchor + ((kv_lo - anchor) / kTile) * kTile;
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][C];
   int qpos[kRowsPerWarp];
@@ -255,7 +266,7 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = (kv_lo / kTile) * kTile; k0 <= kv_hi; k0 += kTile) {
+  for (int k0 = k_first; k0 <= kv_hi; k0 += kTile) {
     uint4 kraw[kKVLoads], vraw[kKVLoads];
 #pragma unroll
     for (int u = 0; u < kKVLoads; ++u) {

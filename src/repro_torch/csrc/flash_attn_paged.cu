@@ -9,17 +9,22 @@
 // The serving engine calls it in the paged refill and prologue prefill,
 // after each layer wrote the prompt's K/V into the lanes' reserved pages.
 //
-// What bounds it on an H100: as flash_attn.cu (the same loop; only the
-// K/V address differs), the bytes: q, out and the live K/V pages once,
-// ~71 MB at B=8, S=512, glm4-9b heads (0.021 ms at 3.35 TB/s).  The
-// Pallas kernel walks every page of [0, S) for each query block and
-// masks; this one loads only keys in [max(pad, window low), own
-// position], so no page outside a lane's prompt range is touched.  It
-// keeps the dense kernel's limits (one query position per block at
-// G = 16, fp32 FMA without tensor cores), and adds one table lookup per
-// loaded key row; on the card its output equals, bit for bit, the dense
-// kernel's on gather_view(pool, tbl)[:, :S].
+// It launches the dense kernel's loops with Paged = true: bfloat16
+// (dtype 1) the tensor-core loop of prefill_rows.cuh, float32 (dtype 0)
+// the FMA loop of attn_rows.cuh; the template flag changes only the
+// address of a key's row (kv_row<true>: one table lookup per loaded key
+// row).  The tile order and the arithmetic are the dense kernel's, so on
+// the card its output equals, bit for bit, the dense kernel's on
+// gather_view(pool, tbl)[:, :S].
+//
+// What bounds it on an H100: as flash_attn.cu, the bytes: q, out and the
+// live K/V pages once, ~71 MB at B=8, S=512, glm4-9b heads (0.021 ms at
+// 3.35 TB/s).  The Pallas kernel walks every page of [0, S) for each
+// query block and masks; this one loads only keys in [max(pad, window
+// low), the block's last position], so no page outside a lane's prompt
+// range is touched.
 #include "attn_rows.cuh"
+#include "prefill_rows.cuh"
 
 extern "C" int repro_flash_attn_paged(const void* q, const void* k_pool,
                                       const void* v_pool, const int* tbl,
@@ -45,5 +50,8 @@ extern "C" int repro_flash_attn_paged(const void* q, const void* k_pool,
   a.causal = causal;
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
-  return repro::launch_attn_rows<true>(a, D, dtype, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return repro::launch_prefill_rows<true>(a, D, st);
+  if (dtype == 0) return repro::launch_attn_rows<true>(a, D, 0, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -17,8 +17,10 @@ def flash_attention(q, k, v, pad=None, *, causal: bool = True,
     are zeros).  Returns (B, S, Hq, D) in q.dtype.
 
     CPU tensors take ``flash_attention_ref``; CUDA tensors launch
-    ``csrc/flash_attn.cu`` or raise.  ``flash_attention.launches`` counts
-    the kernel launches."""
+    ``csrc/flash_attn.cu`` or raise: bfloat16 runs on tensor cores
+    (``csrc/prefill_rows.cuh``), float32 on the FMA loop
+    (``csrc/attn_rows.cuh``).  ``flash_attention.launches`` counts the
+    kernel launches."""
     if on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, pad, causal=causal,
                                    window=window, softcap=softcap)
@@ -61,8 +63,9 @@ def flash_attention_paged(q, k_pool, v_pool, tbl, pad=None, *,
     are zeros).  Returns (B, S, Hq, D) in q.dtype.
 
     CPU tensors take ``flash_attention_paged_ref``; CUDA tensors launch
-    ``csrc/flash_attn_paged.cu`` or raise.
-    ``flash_attention_paged.launches`` counts the kernel launches."""
+    ``csrc/flash_attn_paged.cu`` (the dense kernel's loops, K/V rows
+    through the table) or raise.  ``flash_attention_paged.launches``
+    counts the kernel launches."""
     if on_cpu(q, k_pool, v_pool, tbl):
         return flash_attention_paged_ref(q, k_pool, v_pool, tbl, pad,
                                          causal=causal, window=window,

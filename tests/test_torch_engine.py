@@ -155,3 +155,86 @@ def test_port_ladder_midwave_drafter_fallback(pretrained):
     assert e8.accept_ema == e0.accept_ema
     assert 0 < e0.stats.spec_steps < e0.stats.steps, \
         "scenario did not exercise a mid-wave fallback"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_port_admission_order_stream_invariance(pretrained, seed):
+    """tests/test_policy.py::test_admission_permutation_stream_invariance
+    on the port, with fixed seeds: under greedy decoding, fifo, priority
+    and deadline admission co-batch the 7 requests differently (other
+    refill widths, so other left pads and row counts), and every stream
+    stays byte-identical."""
+    from repro_torch.serving.policy import ServingConfig
+    rng = np.random.default_rng(seed)
+    n = 7
+    lens = [int(rng.integers(3, 20)) for _ in range(n)]
+    budgets = [int(rng.integers(2, 12)) for _ in range(n)]
+    deadlines = [float(rng.uniform(0, 50)) if rng.random() < 0.7 else None
+                 for _ in range(n)]
+    prios = [int(rng.integers(0, 4)) for _ in range(n)]
+    prompts = [[int(t) for t in rng.integers(1, pretrained["cfg"].vocab_size,
+                                             L)] for L in lens]
+    streams, orders = {}, {}
+    for name in ("fifo", "priority", "deadline"):
+        eng = ServingEngine(pretrained["cfg"], pretrained["tp"],
+                            pretrained["dcfg"], pretrained["tdp"],
+                            device="cpu", config=ServingConfig(
+                                batch_size=4, max_len=96, gamma=3,
+                                admission=name))
+        reqs = [Request(prompt=list(p), max_new_tokens=m)
+                for p, m in zip(prompts, budgets)]
+        for r, d, p in zip(reqs, deadlines, prios):
+            r.deadline, r.priority = d, p
+        eng.serve_stream(iter(reqs))
+        assert all(r.finish_t is not None for r in reqs)
+        streams[name] = [list(r.generated) for r in reqs]
+        orders[name] = [r.rid for r in sorted(reqs, key=lambda r: r.admit_t)]
+    assert len({tuple(o) for o in orders.values()}) > 1, \
+        "the policies admitted in one order: nothing was permuted"
+    assert streams["priority"] == streams["fifo"], "priority changed a stream"
+    assert streams["deadline"] == streams["fifo"], "deadline changed a stream"
+
+
+def _refill_batch(eng, prompts):
+    """The engine's refill packing of ``prompts``: (tokens, pad)."""
+    reqs = [Request(prompt=list(p), max_new_tokens=4) for p in prompts]
+    for i, r in enumerate(reqs):
+        r.sid = i
+    toks, pad = eng._refill_arrays(list(enumerate(reqs)))[:2]
+    return toks, pad
+
+
+def test_cobatch_diff_of_a_batch_and_itself(pretrained):
+    from repro_torch.obs.cobatch import cobatch_diff
+    eng = ServingEngine(pretrained["cfg"], pretrained["tp"], pretrained["dcfg"],
+                        pretrained["tdp"], batch_size=4, max_len=96,
+                        device="cpu")
+    toks, pad = _refill_batch(eng, pretrained["prompts"][:3])
+    d = cobatch_diff(pretrained["cfg"], pretrained["tp"], (toks, pad, 1),
+                     (toks, pad, 1))
+    assert d["first_departing_op"] is None and d["departing_alone"] == []
+    assert d["kv_rows_equal"] and d["hidden_equal"] and d["logits_equal"]
+    assert d["pad_a"] == int(pad[1]) and d["batch_a"] == list(toks.shape)
+
+
+def test_cobatch_diff_alone_vs_beside_a_longer_prompt(pretrained):
+    """A prompt refilled alone and beside a longer one gets another pad,
+    width and row count; the first op whose rows depart (if any) departs
+    on its own, with its inputs' rows made equal."""
+    from repro_torch.obs.cobatch import cobatch_diff
+    eng = ServingEngine(pretrained["cfg"], pretrained["tp"], pretrained["dcfg"],
+                        pretrained["tdp"], batch_size=4, max_len=96,
+                        device="cpu")
+    short, long_ = sorted(pretrained["prompts"][:2], key=len)
+    long_ = list(long_) * 3
+    alone = _refill_batch(eng, [short])
+    beside = _refill_batch(eng, [long_, short])
+    d = cobatch_diff(pretrained["cfg"], pretrained["tp"], (*alone, 0),
+                     (*beside, 1))
+    assert d["prompt_len"] == len(short)
+    assert (d["pad_a"], d["batch_a"]) != (d["pad_b"], d["batch_b"])
+    first = d["first_departing_op"]
+    assert first is None or first in d["departing_alone"]
+    with pytest.raises(ValueError):
+        cobatch_diff(pretrained["cfg"], pretrained["tp"], (*alone, 0),
+                     (*beside, 0))

@@ -28,6 +28,8 @@ from repro_torch.kernels.verify_attn.ops import (  # noqa: E402
 from repro_torch.kernels.verify_attn.ref import (  # noqa: E402
     verify_attention_paged_ref, verify_attention_ref,
     verify_attention_tree_ref)
+from repro_torch.obs.cobatch import (SHIFT_KINDS, lane_inputs,  # noqa: E402
+                                     pad_shift_departure)
 
 DTYPES = ["float32", "bfloat16"]
 FLASH_SHAPES = [(1, 128, 2, 1, 64, True, 0), (2, 256, 4, 2, 64, True, 0),
@@ -541,3 +543,96 @@ def test_cuda_verify_tree_paged_vs_dense(cuda, b, w, g, window, hq, hk, d,
                                    window=window, tree=(w, g))
     torch.cuda.synchronize()
     assert torch.equal(again, got)
+
+
+# ------------------------- the bf16 tensor-core prefill at tile edges (card)
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 511, 512])
+@pytest.mark.parametrize("hq,hk,d", [(32, 2, 128), (8, 2, 64), (2, 1, 32)])
+def test_cuda_flash_bf16_tile_edges(cuda, s, hq, hk, d):
+    """The bf16 prefill (dense and paged) against its plain version where
+    a 64-row or 64-key tile ends: per element at the bf16 tolerance and
+    as a whole at relative L2 below 1e-3 (chip_smoke.py's REL_L2_TOL);
+    paged equals dense on the gathered view, bit for bit."""
+    b, page = 3, 16
+    q = _randn((b, s, hq, d), "bfloat16", cuda, 71)
+    n_tbl = -(-s // page) + 1
+    k_pool, v_pool, tbl = _paged_case(b, hk, d, page, n_tbl, "bfloat16",
+                                      cuda, 73, [-(-s // page)] * b)
+    k = gather_view(k_pool, tbl)[:, :s].contiguous()
+    v = gather_view(v_pool, tbl)[:, :s].contiguous()
+    pad = torch.tensor([0, min(5, s), s // 2], dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, pad)
+    paged = flash_attention_paged(q, k_pool, v_pool, tbl, pad)
+    want = flash_attention_ref(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(paged, got), "paged != dense kernel on the view"
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol("bfloat16"))
+    if want.abs().sum() > 0:
+        assert _rel_l2(got, want) < 1e-3
+    for lane in range(b):
+        assert not got[lane, :int(pad[lane])].any(), "rows before pad"
+
+
+# --------------------------------- pad-shift invariance, bit for bit (card)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hq,hk,d", [(32, 2, 128), (8, 2, 64)])
+@pytest.mark.parametrize("kind", SHIFT_KINDS)
+def test_cuda_pad_shift_bitwise(cuda, kind, hq, hk, d, dtype):
+    """A lane's attention does not depend on where its prompt sits: its
+    left pad, its row's width and the other lanes of the batch
+    (``obs.cobatch.placed_rows``: pads 0, 5, 17, 31, 32, 100, rows 0, 40
+    and 100 wider).  The refill pads each prompt to the widest of its
+    batch, so without this a greedy stream depends on the prompts it was
+    admitted with."""
+    lane = lane_inputs(150, hq, hk, d, getattr(torch, dtype), cuda, 81)
+    moved = pad_shift_departure(kind, lane)
+    torch.cuda.synchronize()
+    assert moved is None, \
+        f"{kind}: rows at (pad, width +) {moved} differ from pad 0's"
+
+
+# ------------------------------------- a refill's batch, layer by layer (card)
+@pytest.mark.gpu
+def test_cuda_cobatch_attention_never_departs(cuda):
+    """glm4-9b at 2 layers, random weights: one prompt refilled alone and
+    beside a longer prompt (another pad, width and row count).  No
+    attention op may depart on its own; if nothing departs, the K/V
+    rows, hidden states and logits are equal bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.core import eagle
+    from repro_torch.models import transformer as T
+    from repro_torch.obs.cobatch import cobatch_diff
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = dataclasses.replace(get("glm4-9b"), num_layers=2)
+    dcfg = eagle.draft_config(cfg)
+    eng = ServingEngine(cfg, T.init(cfg, 1, device=cuda), dcfg,
+                        eagle.draft_init(dcfg, 2, device=cuda), batch_size=2,
+                        max_len=512, device=cuda)
+    rng = np.random.default_rng(12)
+    short = rng.integers(1, cfg.vocab_size, 133).tolist()
+    long_ = rng.integers(1, cfg.vocab_size, 301).tolist()
+
+    def batch(prompts):
+        reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts]
+        for i, r in enumerate(reqs):
+            r.sid = i
+        return eng._refill_arrays(list(enumerate(reqs)))[:2]
+
+    d = cobatch_diff(cfg, eng.params, (*batch([short]), 0),
+                     (*batch([long_, short]), 1))
+    print(d)
+    assert not [n for n in d["departing_alone"] if n.endswith(".attention")]
+    if d["first_departing_op"] is None:
+        assert d["kv_rows_equal"] and d["hidden_equal"] and d["logits_equal"]
