@@ -28,8 +28,14 @@ Phases, one JSON line each:
            wider gives the same rows bit for bit (pad_shift_equal).  The
            prefill rows name their path (prefill_path:
            tensor_core_bf16) and the error of a one-bf16-P emulation
-           (p_bf16_rel_l2_emulated); every row with a library call gets
-           ms_over_library_ms.
+           (p_bf16_rel_l2_emulated), the verify rows theirs
+           (verify_path: tensor_core_bf16, asserted); every row with a
+           library call gets ms_over_library_ms.  linear_rows, the
+           prefill's row-invariant matrix product, at glm4-9b's (K, N)
+           of k_proj, q_proj/o_proj, ffn_up, ffn_down and lm_head: each
+           row of x gives the same row, torch.equal, at M = 1, 2, 126,
+           128, 992 and 3968; its time against torch.matmul (which is
+           also its plain version) at M 3968 and 128.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
            streams, dense and paged (page 16), tree speculation at
@@ -45,19 +51,20 @@ Phases, one JSON line each:
   cobatch  the serve's shortest prompt refilled alone and beside its
            longest (the engine's own refill packing: another pad, width
            and row count) through glm4-9b at full depth, op by op: the
-           first op whose rows of the prompt depart (verdict, or none)
-           and every op that departs with equal input rows; no attention
-           op may depart.
+           first op whose rows of the prompt depart (verdict) and every
+           op that departs with equal input rows.  The verdict must be
+           none and no op may depart alone.  Beside it, the same steps
+           with torch.matmul for the products under
+           allow_bf16_reduced_precision_reduction = False: what cuBLAS
+           alone would give with that setting (reported, not asserted).
   paged_serve  the same engine configuration with page_size 16 on the
            same weights and requests, twice: with the dense footprint of
            512 pages (no admission can defer, so the schedule is the
            dense serve's: streams, supersteps and host syncs must equal
            it exactly, prefix hits > 0), then with 256 pages (the
            admission guard defers; every request must finish, the peak
-           must stay within the pool, every paged kernel must launch; a
-           stream that differs from dense gets its first flip and top-2
-           logit gap, and with a cobatch verdict of none all 16 must
-           equal dense).
+           must stay within the pool, every paged kernel must launch,
+           and all 16 streams must equal dense).
            The allocator is clean at drain in both.
   tree_serve  the serve's configuration, weights and requests with
            tree speculation, W = 1 (streams, supersteps and host syncs
@@ -72,8 +79,7 @@ Phases, one JSON line each:
            and host syncs must equal the chain serve's, W = 4's streams
            the dense W = 4 tree serve's), then W = 4 with 256 pages
            (the tree's larger reservation makes the guard defer; its
-           first flip against the dense W = 4 tree is reported, and with a
-           cobatch verdict of none its streams must equal it).  Every
+           streams must equal the dense W = 4 tree's).  Every
            target verify is one launch per layer of the paged kernel in
            tree mode (layers x speculative rounds, asserted), the draft
            attends through the paged kernel in chain mode, the dense
@@ -88,7 +94,7 @@ Phases, one JSON line each:
            block the host more than the chain.  Each engine is freed
            before the next is built.
 
-Then the kernel table (``{"kernels": [...]}``: seven rows, each with its
+Then the kernel table (``{"kernels": [...]}``: eight rows, each with its
 launch count from the main-path serve that runs it), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
@@ -212,7 +218,8 @@ def phase_kernels():
     from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.flash_attn.ref import (flash_attention_ref,
                                                     prefill_mask)
-    from repro_torch.kernels.verify_attn.ops import verify_attention
+    from repro_torch.kernels.verify_attn.ops import (verify_attention,
+                                                     verify_route)
     from repro_torch.kernels.verify_attn.ref import (verify_attention_ref,
                                                      verify_mask)
     dev = torch.device("cuda")
@@ -283,10 +290,13 @@ def phase_kernels():
             bound_ms=b_ms, bound_by=b_by,
             library_ms=cuda_ms(lambda: _sdpa(qt, kc, vc, vmask))))
     head = cases[0]
+    vpath = verify_route(bf, D)
+    assert vpath == "tensor_core_bf16", vpath
     rows.append(dict(
         name="verify_attention", route="cuda",
         source="src/repro_torch/csrc/verify_attn.cu",
         replaces="src/repro/kernels/verify_attn/kernel.py:214",
+        verify_path=vpath,
         max_abs_err=max(c["max_abs_err"] for c in cases),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")},
@@ -356,6 +366,7 @@ def phase_kernels():
         name="verify_attention_paged", route="cuda",
         source="src/repro_torch/csrc/verify_attn_paged.cu",
         replaces="src/repro/kernels/verify_attn/kernel.py:157",
+        verify_path=vpath,
         max_abs_err=max(c["max_abs_err"] for c in pcases),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")},
@@ -420,6 +431,7 @@ def phase_kernels():
         plain_ms=cuda_ms(lambda: extract_pack_ref(feats, toks, msk), iters=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"feats {tuple(feats.shape)} bf16"))
+    rows.append(_linear_rows_row(g))
     for row in rows:
         kinds = SHIFT_KINDS_OF[row["name"]]
         row["pad_shift_equal"] = _pad_shift_equal(kinds) if kinds else None
@@ -430,13 +442,73 @@ def phase_kernels():
 
 
 # the pad-shift placements (repro_torch.obs.cobatch.placed_rows) each
-# kernel row is held to; extract_pack has no pad
+# kernel row is held to; extract_pack and linear_rows have no pad
 SHIFT_KINDS_OF = {
     "flash_attention": ("prefill",), "flash_attention_paged": ("prefill_paged",),
     "verify_attention": ("verify4", "verify1"),
     "verify_attention_paged": ("verify_paged4", "verify_paged1"),
     "verify_attention_tree": ("tree",),
-    "verify_attention_paged_tree": ("tree_paged",), "extract_pack": ()}
+    "verify_attention_paged_tree": ("tree_paged",), "extract_pack": (),
+    "linear_rows": ()}
+
+# glm4-9b's (name, K, N) of the prefill's products
+LINEAR_KN = (("k_proj", 4096, 256), ("q_proj/o_proj", 4096, 4096),
+             ("ffn_up/gate", 4096, 13696), ("ffn_down", 13696, 4096),
+             ("lm_head", 4096, 151552))
+LINEAR_M = (1, 2, 126, 128, 992, 3968)
+
+
+def _linear_rows_row(g):
+    """linear_rows at glm4-9b's (K, N): every row of x gives the same
+    row, bit for bit, at each M of LINEAR_M (the first M rows of one x);
+    error against float64 on 128 rows and at most 4096 columns; time
+    against torch.matmul (the plain version, and the library call) at
+    M 3968 and 128.  The row's headline is ffn_down at M 3968 (a refill
+    of 8 x 496 rows)."""
+    from repro_torch.kernels.linear_rows.ops import k_splits, linear_rows
+    from repro_torch.kernels.linear_rows.ref import linear_rows_ref
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    cases = []
+    for name, k, n in LINEAR_KN:
+        x = torch.randn((max(LINEAR_M), k), generator=g, device=dev).to(bf)
+        w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(bf)
+        full = linear_rows(x, w)
+        for m in LINEAR_M:
+            assert torch.equal(linear_rows(x[:m], w), full[:m]), \
+                f"linear_rows {name}: rows move with M = {m}"
+        cols = slice(0, min(n, 4096))
+        want = x[:128].double() @ w[:, cols].double()
+        got = full[:128, cols].double()
+        torch.cuda.synchronize()
+        assert torch.isfinite(full).all(), f"linear_rows {name} non-finite"
+        rel = float((got - want).norm() / want.norm())
+        assert rel < 3e-3, f"linear_rows {name}: rel L2 {rel} vs float64"
+        case = dict(product=name, K=k, N=n, k_splits=k_splits(n, k),
+                    rows_equal_across_M=list(LINEAR_M), rel_l2_vs_f64=rel,
+                    max_abs_err=float((got - want).abs().max()))
+        for m in (max(LINEAR_M), 128):
+            xm = x[:m]
+            b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2.0 * m * n * k)
+            case[f"M{m}"] = dict(
+                ms=cuda_ms(lambda: linear_rows(xm, w)),
+                plain_ms=cuda_ms(lambda: linear_rows_ref(xm, w)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(lambda: torch.matmul(xm, w)))
+        cases.append(case)
+        del x, w, full
+    head = next(c for c in cases if c["product"] == "ffn_down")
+    top = head[f"M{max(LINEAR_M)}"]
+    return dict(name="linear_rows", route="cuda",
+                source="src/repro_torch/csrc/linear_rows.cu",
+                replaces="none: no Pallas kernel; the products of "
+                         "src/repro/models/attention.py:373 qkv_proj and the "
+                         "FFN, which XLA computes",
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                rel_l2_err=max(c["rel_l2_vs_f64"] for c in cases),
+                **top, library="torch.matmul (also the plain version)",
+                shape=f"ffn_down x ({max(LINEAR_M)}, {head['K']}) @ w "
+                      f"({head['K']}, {head['N']}) bf16", cases=cases)
 
 
 def _pad_shift_equal(kinds) -> bool:
@@ -485,7 +557,8 @@ def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
     scaled_dot_product_attention with the explicit tree mask."""
     from repro_torch.core.paging import gather_view
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
-                                                     verify_attention_paged)
+                                                     verify_attention_paged,
+                                                     verify_route)
     from repro_torch.kernels.verify_attn.ref import (
         tree_mask, verify_attention_tree_paged_ref, verify_attention_tree_ref)
     dev = kc.device
@@ -514,8 +587,10 @@ def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
     err, rel = hold(o, r, "verify_attention tree")
     dense_row = dict(
         name="verify_attention_tree", route="cuda",
-        source="src/repro_torch/csrc/verify_attn.cu (attn_rows.cuh tree mode)",
+        source="src/repro_torch/csrc/verify_attn.cu (prefill_rows.cuh tree "
+               "mode)",
         replaces="src/repro/kernels/verify_attn/kernel.py:27",
+        verify_path=verify_route(qt.dtype, D),
         max_abs_err=err, rel_l2_err=rel, w1_equal_chain=True,
         ms=cuda_ms(lambda: verify_attention(qt, kc, vc, ln, pd,
                                             tree=(W, G))),
@@ -543,8 +618,9 @@ def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
     paged_row = dict(
         name="verify_attention_paged_tree", route="cuda",
         source="src/repro_torch/csrc/verify_attn_paged.cu "
-               "(attn_rows.cuh tree mode)",
+               "(prefill_rows.cuh tree mode)",
         replaces="src/repro/kernels/verify_attn/kernel.py:134",
+        verify_path=verify_route(qt.dtype, D),
         max_abs_err=perr, rel_l2_err=prel, equal_dense=True,
         ms=cuda_ms(lambda: verify_attention_paged(qt, kpool, vpool, tb, ln,
                                                   pd, tree=(W, G))),
@@ -687,13 +763,15 @@ def _kernel_fns():
     from repro_torch.kernels.extract_pack.ops import pack_signals
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_paged)
+    from repro_torch.kernels.linear_rows.ops import linear_rows
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                      verify_attention_paged)
     return {"flash_attention": flash_attention,
             "verify_attention": verify_attention,
             "extract_pack": pack_signals,
             "verify_attention_paged": verify_attention_paged,
-            "flash_attention_paged": flash_attention_paged}
+            "flash_attention_paged": flash_attention_paged,
+            "linear_rows": linear_rows}
 
 
 def _serve_requests(vocab):
@@ -785,6 +863,10 @@ def phase_serve():
     summary, launches = _timed_serve(eng, reqs)
     for name in ("flash_attention", "verify_attention", "extract_pack"):
         assert launches[name] > 0, launches
+    # every prefill op: q, k, v, o, gate, up and down of each layer, and
+    # the last-position lm_head
+    assert launches["linear_rows"] == len(summary["prefill_rows_width_ms"]) \
+        * (7 * cfg.num_layers + 1), launches
     emit({"phase": "serve", **summary, "init_s": round(init_s, 2),
           "nvidia_smi": smi()})
     return launches, eng, summary, [list(r.generated) for r in reqs]
@@ -812,8 +894,10 @@ def phase_cobatch(eng):
     glm4-9b at full depth: the first op whose rows of that prompt depart
     (layer by layer: hidden states, K/V rows, last-position logits), or
     none, and every op that departs with its inputs' rows made equal
-    (``repro_torch.obs.cobatch``).  No attention op may depart.  Returns
-    the first departing op or None."""
+    (``repro_torch.obs.cobatch``).  No op may depart, alone or through
+    its inputs.  The same steps with torch.matmul under
+    ``allow_bf16_reduced_precision_reduction = False`` are reported
+    beside it."""
     from repro_torch.obs.cobatch import cobatch_diff
     from repro_torch.serving.request import Request
     prompts = sorted((r.prompt for r in _serve_requests(eng.cfg.vocab_size)),
@@ -826,17 +910,33 @@ def phase_cobatch(eng):
             r.sid = i
         return eng._refill_arrays(list(enumerate(reqs)))[:2]
 
-    d = cobatch_diff(eng.cfg, eng.params, (*batch([short]), 0),
-                     (*batch([long_, short]), 1))
-    attn = [n for n in d["departing_alone"] if n.endswith(".attention")]
+    a_, b_ = (*batch([short]), 0), (*batch([long_, short]), 1)
+    # the library alone, with cuBLAS's reduced-precision bf16 reductions
+    # off: does that setting pin its rows at these two row counts?
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        lib = cobatch_diff(eng.cfg, eng.params, a_, b_, linear=torch.matmul)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    d = cobatch_diff(eng.cfg, eng.params, a_, b_)
     emit({"phase": "cobatch", "verdict": d["first_departing_op"] or "none",
           **d, "departing_alone_count": len(d["departing_alone"]),
-          "departing_alone": d["departing_alone"][:12]})
-    assert not attn, f"attention departs with its batch: {attn}"
-    return d["first_departing_op"]
+          "departing_alone": d["departing_alone"][:12],
+          "torch_matmul_bf16_reduction_off": {
+              "verdict": lib["first_departing_op"] or "none",
+              "departing_alone_count": len(lib["departing_alone"]),
+              "departing_alone": lib["departing_alone"][:12],
+              "logits_max_abs_diff": lib["logits_max_abs_diff"]}})
+    assert d["first_departing_op"] is None, \
+        f"{d['first_departing_op']} departs with the refill batch"
+    assert not d["departing_alone"], d["departing_alone"]
+    assert d["kv_rows_equal"] and d["hidden_equal"] and d["logits_equal"]
 
 
-def phase_paged_serve(dense_eng, dense, dense_streams, blocking, cobatch):
+def phase_paged_serve(dense_eng, dense, dense_streams, blocking):
     """The serve on a paged engine (page 16) with the same weights and
     requests: first with the dense footprint of pages, where the schedule
     must be the dense serve's exactly, then with half of it, whose engine
@@ -865,19 +965,6 @@ def phase_paged_serve(dense_eng, dense, dense_streams, blocking, cobatch):
                   "verify_attention", "extract_pack"):
             assert launches[k] > 0, launches
         assert launches["flash_attention"] == 0, launches
-        if name == "half":
-            assert st.admission_deferrals > 0, "the guard never deferred"
-            # the deferral moves prompts to other refill batches; with no
-            # op of the prefill departing with its batch the streams hold
-            if cobatch is None:
-                assert streams == dense_streams, \
-                    "half-pool streams != dense though no op departs"
-        if name == "dense_footprint":
-            assert st.admission_deferrals == 0
-            assert streams == dense_streams, "paged streams != dense streams"
-            assert st.dispatches == dense["supersteps"]
-            assert eng.host_syncs == dense["host_syncs"], \
-                (eng.host_syncs, dense["host_syncs"])
         emit({"phase": "paged_serve", "run": name, "page_size": GLM["P"],
               "num_pages": num_pages, **summary,
               "pages_peak": st.pages_peak,
@@ -893,6 +980,17 @@ def phase_paged_serve(dense_eng, dense, dense_streams, blocking, cobatch):
               "host_syncs_per_superstep_dense":
                   dense["host_syncs_per_superstep"],
               "nvidia_smi": smi()})
+        # the half pool's deferrals move prompts to other refill batches;
+        # no op of the prefill departs with its batch (cobatch), so its
+        # streams hold as the dense footprint's do
+        assert streams == dense_streams, f"{name}: paged streams != dense"
+        if name == "half":
+            assert st.admission_deferrals > 0, "the guard never deferred"
+        if name == "dense_footprint":
+            assert st.admission_deferrals == 0
+            assert st.dispatches == dense["supersteps"]
+            assert eng.host_syncs == dense["host_syncs"], \
+                (eng.host_syncs, dense["host_syncs"])
         if name == "half":
             half = launches
             profile_against(eng, "paged", blocking)
@@ -967,7 +1065,7 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
 
 
 def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
-                           blocking, cobatch):
+                           blocking):
     """Greedy tree speculation over paged KV (page 16) on the serve
     phase's weights and requests: W = 1 and W = 4 with the dense
     footprint of 512 pages, then W = 4 with 256.  The target verify of
@@ -1033,24 +1131,23 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
                "superstep_ms_median_chain": dense["superstep_ms_median"],
                "note": "random weights: mean accepted length ~1.0",
                "nvidia_smi": smi()}
+        if streams != tree_streams[width]:
+            row["first_flip_vs_dense_tree"] = _first_flip(
+                eng, reqs, streams, tree_streams[width])
+        emit(row)
+        # at 256 pages the guard defers, so prompts meet other refill
+        # batches; no prefill op departs with its batch (cobatch)
+        assert streams == tree_streams[width], \
+            f"paged tree W={width} at {num_pages} pages != dense tree"
         if num_pages == 512:
             assert st.admission_deferrals == 0
-            assert streams == tree_streams[width], \
-                f"paged tree W={width} streams != dense tree W={width}"
         else:
             assert st.admission_deferrals > 0, "the guard never deferred"
-            if cobatch is None:
-                assert streams == tree_streams[width], \
-                    "half-pool tree streams != dense tree though no op departs"
-            if streams != tree_streams[width]:
-                row["first_flip_vs_dense_tree"] = _first_flip(
-                    eng, reqs, streams, tree_streams[width])
         if width == 1:
             assert streams == dense_streams, "paged tree W=1 != chain"
             assert st.dispatches == dense["supersteps"]
             assert eng.host_syncs == dense["host_syncs"], \
                 (eng.host_syncs, dense["host_syncs"])
-        emit(row)
         if width == W4 and num_pages == 512:
             out = launches
             profile_against(eng, f"paged tree W={W4}", blocking)
@@ -1061,12 +1158,14 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "attn_rows" in n or "prefill_rows" in n:
+    if "attn_rows" in n or "mma_rows" in n:
         return "attention kernels (port)"
     if "extract_pack" in n:
         return "extract_pack (port)"
+    if "linear_rows" in n:
+        return "linear_rows (port)"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n \
-            or "splitk" in n:
+            or "splitk" in n or "nvjet" in n:   # nvjet: cuBLAS's sm90 GEMMs
         return "matmul (cuBLAS)"
     return "other (elementwise, copies, reductions)"
 
@@ -1135,9 +1234,9 @@ def main():
     rows = phase_kernels()
     phase_ladder()
     launches, eng, dense, dense_streams = phase_serve()
-    cobatch = phase_cobatch(eng)
+    phase_cobatch(eng)
     blocking = phase_profile(eng, "dense")
-    paged = phase_paged_serve(eng, dense, dense_streams, blocking, cobatch)
+    paged = phase_paged_serve(eng, dense, dense_streams, blocking)
     for name in ("verify_attention_paged", "flash_attention_paged"):
         launches[name] = paged[name]
     trees = phase_tree_serve(eng, dense, dense_streams, blocking)
@@ -1145,7 +1244,7 @@ def main():
         trees[GLM["TREE_W"]][0]["verify_attention_tree"]
     ptree = phase_paged_tree_serve(
         eng, dense, dense_streams, {w: s for w, (_, s) in trees.items()},
-        blocking, cobatch)
+        blocking)
     launches["verify_attention_paged_tree"] = \
         ptree["verify_attention_paged_tree"]
     del eng, trees

@@ -1,7 +1,11 @@
-// Shared device code of the attention kernels (verify_attn.cu, its paged
-// twin verify_attn_paged.cu, and the float32 path of flash_attn.cu and
-// flash_attn_paged.cu, whose bfloat16 path is prefill_rows.cuh): masked
-// GQA attention over one lane's KV rows with an fp32 online softmax.
+// Shared device code of the attention kernels, and their FMA loop: the
+// float32 path of every attention kernel (verify_attn.cu, its paged twin
+// verify_attn_paged.cu, flash_attn.cu, flash_attn_paged.cu) and the
+// verify's bfloat16 path at head_dim 32 and 64.  Their bfloat16 paths at
+// the served shapes (the prefill at every head dim, the verify at
+// head_dim 128) run the tensor-core loop of prefill_rows.cuh, which
+// shares AttnArgs, kv_row and the tree helpers below.  Masked GQA
+// attention over one lane's KV rows with an fp32 online softmax.
 //
 // K/V addressing is a compile-time policy (the Paged template flag), and
 // so is the tree mode (the Tree flag, below):
@@ -21,10 +25,11 @@
 // pairs that share one kv head, t-major and g-minor, so the G = Hq / Hk
 // heads of a kv head that fall in one block share each K/V tile it
 // loads, and a causal block's key range ends at its last position.  At
-// G >= 16 (glm4-9b: G = 16) a block is a single query position: each
-// block walks its lane's K/V alone, so a lane's K/V is read once per
-// query position, not once per lane (see the notes of flash_attn.cu and
-// verify_attn.cu for what that costs).
+// G >= 16 a block is a single query position, so a lane's K/V is read
+// once per query position.  What bounds this loop is arithmetic: fp32
+// FMA from shared memory at most 67 TFLOP/s on an H100, and those
+// re-reads.  It stays for float32, whose sums hold the CPU sweeps' 2e-5
+// (TF32 tensor cores keep about 3 digits), and for the small head dims.
 // Four warps, four rows per warp; keys are walked in tiles of 32, one key
 // per lane for the scores, then one D/32-column slice per lane for P·V.
 // The tiles are anchored at the lane's pad: tile j holds keys

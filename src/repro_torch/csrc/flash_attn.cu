@@ -61,7 +61,7 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return repro::launch_prefill_rows<false>(a, D, st);
+  if (dtype == 1) return repro::launch_mma_rows<false>(a, D, st);
   if (dtype == 0) return repro::launch_attn_rows<false>(a, D, 0, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -51,7 +51,7 @@ extern "C" int repro_flash_attn_paged(const void* q, const void* k_pool,
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return repro::launch_prefill_rows<true>(a, D, st);
+  if (dtype == 1) return repro::launch_mma_rows<true>(a, D, st);
   if (dtype == 0) return repro::launch_attn_rows<true>(a, D, 0, st);
   return (int)cudaErrorInvalidValue;
 }

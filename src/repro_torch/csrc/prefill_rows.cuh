@@ -1,18 +1,32 @@
-// The bfloat16 prefill attention loop for Hopper (sm_90a), on tensor
-// cores: launched by flash_attn.cu (dense K/V) and flash_attn_paged.cu
-// (K/V through a block table) for dtype bfloat16.  Their float32 path is
-// the FMA loop of attn_rows.cuh.  What it computes is that loop's prefill
-// case: q (B, S, Hq, D) at positions [0, S), row b sees keys kpos with
+// The bfloat16 attention loop for Hopper (sm_90a), on tensor cores:
+// the prefill, launched by flash_attn.cu (dense K/V) and
+// flash_attn_paged.cu (K/V through a block table), and the decode side at
+// head_dim 128, launched by verify_attn.cu and verify_attn_paged.cu in
+// chain and tree mode.  Their float32 paths (and the verify's bfloat16
+// at head_dim 32 and 64) are the FMA loop of attn_rows.cuh.  What it
+// computes is that loop's: q (B, T, Hq, D) at positions qoff[b] + [0, T)
+// (qoff 0 and T = S for the prefill, lengths[b] for a verify); row b sees
+// keys kpos with
 //   pad[b] <= kpos < S, (!causal || kpos <= qpos), (!window || kpos > qpos - window),
-// and a row with no visible key (every row before pad[b]) writes zeros.
+// or, in tree mode, the tree visibility of attn_rows.cuh (tree_visible:
+// the committed keys and the row's root path, the window on logical
+// positions; here as per-row key ranges); a row with no visible key
+// writes zeros.
 //
 // Work split.  One block of four warps per (row tile, kv head, lane).  A
 // row tile is kPfRows = 64 (query position t, query head g) rows of one
 // kv head, t-major and g-minor as in attn_rows.cuh, so at G = Hq / Hk =
 // 16 (glm4-9b) it holds 4 positions, all 16 query heads of a kv head
 // share every K/V tile it loads, and a warp's 16 rows are one position
-// (its causal bound is warp-uniform).  Blocks are issued last tile
-// first: a causal tile's work grows with its position.
+// (its causal bound, and in tree mode its slot, is warp-uniform).  So a
+// verify of T = 4 is one block per (lane, kv head), which reads the
+// lane's K/V once (the FMA loop's blocks of one position read it T
+// times); a tree of T = 13 is four row tiles, T = 1 one partly filled
+// tile, and the draft's prompt seeding (T = 511) the prefill's shape.
+// Blocks are issued last tile first: a causal tile's work grows with
+// its position.  There is no split over keys: at B = 8 and 2 kv heads a
+// T = 4 verify is 16 blocks on 132 SMs, each walking its lane's keys
+// alone, and that, not the bytes, bounds the decode side.
 //
 // Staging.  The Q tile goes to shared memory once (cp.async) and into
 // registers (ldmatrix) once.  K/V tiles of kPfKeys = 64 keys follow
@@ -20,17 +34,18 @@
 // used.  Shared-memory rows are D + 8 elements long, so the eight 16-byte
 // rows of an ldmatrix fall in eight different bank groups.  At D = 128
 // that is (64 + 4 * 64) * 136 * 2 = 87,040 bytes of dynamic shared memory
-// (two blocks per SM); launch_prefill_rows refuses what the card's
-// opt-in limit does not hold.
+// (two blocks per SM); launch_mma_rows refuses what the card's opt-in
+// limit does not hold.
 //
 // Key walk.  Key tiles are anchored at the lane's pad, as in
-// attn_rows.cuh: tile j holds keys [pad + 64j, pad + 64j + 64), from the
-// tile that holds the block's lowest visible key kv_lo (the pad, or
-// higher under a window) to the block's last position kv_hi.  Keys
-// outside [kv_lo, kv_hi] are never loaded: their slots are zeros, so
-// positions before the pad, and table entries (the trash page) past the
-// prompt, are never read.  A warp skips a tile in which none of its rows
-// sees a key.
+// attn_rows.cuh: tile j holds keys [anchor + 64j, anchor + 64j + 64),
+// anchor = min(pad, kv_lo), from the tile that holds the block's lowest
+// visible key kv_lo (the pad, or higher under a window; in tree mode
+// the in-block keys count whatever the pad) to the block's last visible
+// position kv_hi.  Keys outside [kv_lo, kv_hi] are never loaded: their
+// slots are zeros, so positions before the pad, and table entries (the
+// trash page) past the block, are never read.  A warp skips a tile in
+// which none of its rows sees a key.
 //
 // Products.  Both are mma.sync.aligned.m16n8k16, bfloat16 inputs and
 // fp32 accumulation: S = Q·K^T takes K through ldmatrix, P·V takes V
@@ -50,16 +65,18 @@
 // wherever the lane's prompt sits in its batch: the tiles are anchored
 // at the pad, and the block a row lands in changes only which tiles past
 // the row's own last key it walks (P = 0 there, alpha = 1: the row's
-// state stays as it was) and which slots past kv_hi are zeros.
+// state stays as it was) and which slots past kv_hi are zeros.  The
+// tree mode and the Paged policy change only the mask and kv_row, so a
+// tree of W = 1 is the chain and a paged call is the dense kernel on
+// the gathered view, bit for bit.
 //
 // Non-finite values.  A key outside the loaded range is never read (the
-// pad, the trash page).  Inside it, a key above one row's causal bound
+// pad, the trash page).  Inside it, a key above one row's visible range
 // may be below another row's: its V row is loaded and multiplied by
 // P = 0, and 0 * NaN is NaN, so a non-finite V stored there would reach
 // that row.  The serving engine never stores one there: every key in
-// [pad, S) of a prefill is a prompt key that this call's own layer has
-// just computed, and a non-finite one would already be in the rows that
-// see it.
+// [pad, kv_hi] is a prompt or cache key a layer has computed, and the
+// caches are zero-initialised.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -140,8 +157,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int D, bool Paged>
-__global__ void __launch_bounds__(kPfWarps * 32, 2) prefill_rows_kernel(AttnArgs a) {
+template <int D, bool Paged, bool Tree>
+__global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = D + kPfPadE;          // shared row stride, elements
   constexpr int CH = D / 8;                // 16-byte chunks per row
@@ -169,6 +186,7 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) prefill_rows_kernel(AttnArgs
   const bf16* vc = static_cast<const bf16*>(a.v);
   bf16* o = static_cast<bf16*>(a.o);
   const int pad = max(a.pad ? a.pad[b] : 0, 0);
+  const int qoff = a.qoff ? a.qoff[b] : 0;
 
   // ---- the Q tile, once
 #pragma unroll
@@ -187,26 +205,54 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) prefill_rows_kernel(AttnArgs
 
   // ---- the block's key range, and the tiles anchored at the pad
   const int last = min(row0 + kPfRows, nrows) - 1;
-  const int qp_lo = row0 / G, qp_hi = last / G;
+  int qp_lo = qoff + row0 / G;
+  const int qp_hi = qoff + last / G;
   int kv_lo = pad;
+  if constexpr (Tree) {
+    // the lowest logical position is length + the smallest depth of the
+    // block's slots, and the in-block keys are visible whatever the pad
+    qp_lo = qoff + tree_min_depth(row0 / G, last / G, a.tree_g);
+    kv_lo = max(min(pad, qoff), 0);
+  }
   if (a.window > 0) kv_lo = max(kv_lo, qp_lo - a.window + 1);
   const int kv_hi = a.causal ? min(a.S - 1, qp_hi) : a.S - 1;
-  const int k_first = pad + ((kv_lo - pad) / kPfKeys) * kPfKeys;
+  const int anchor = min(pad, kv_lo);
+  const int k_first = anchor + ((kv_lo - anchor) / kPfKeys) * kPfKeys;
   const int ntiles = kv_hi >= kv_lo ? (kv_hi - k_first) / kPfKeys + 1 : 0;
 
   // ---- this thread's two rows (gid, gid + 8 of its warp) and the keys
-  // each sees; the warp's union decides which tiles it skips
-  int lo[2], hi[2];
+  // each sees (in tree mode: bounds of them, refined per key by
+  // the row's tree visibility); the warp's union decides which tiles it
+  // skips.  tree_visible, made once per row here: a tree row at depth d
+  // sees the committed keys [c_lo, qoff), the root (key qoff) unless the
+  // window excludes it, and its branch's slots at depths up to d, keys
+  // [b_lo, b_hi]; so the per-key test is compares only, with no
+  // division by the tree depth
+  int lo[2], hi[2], c_lo[2], b_lo[2], b_hi[2];
+  bool root[2];
   bool live[2];
   int w_lo = INT_MAX, w_hi = -1;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + warp * 16 + gid + 8 * i;
-    const int qpos = r / G;
+    const int qpos = qoff + r / G;
     live[i] = r < nrows;
-    lo[i] = pad;
-    if (a.window > 0) lo[i] = max(lo[i], qpos - a.window + 1);
-    hi[i] = a.causal ? min(qpos, a.S - 1) : a.S - 1;
+    if constexpr (Tree) {
+      // an ancestor's slot is never above its descendant's
+      lo[i] = kv_lo;
+      hi[i] = min(qpos, a.S - 1);
+      const int qi = r / G, g = a.tree_g;
+      const int d = tree_depth(qi, g);
+      const int base = qoff + 1 + (qi == 0 ? 0 : (qi - 1) / g) * g;
+      c_lo[i] = a.window > 0 ? max(pad, qoff + d - a.window + 1) : pad;
+      root[i] = a.window <= 0 || d < a.window;
+      b_lo[i] = base + (a.window > 0 ? max(0, d - a.window) : 0);
+      b_hi[i] = base + d - 1;   // below b_lo at the root: no branch key
+    } else {
+      lo[i] = pad;
+      if (a.window > 0) lo[i] = max(lo[i], qpos - a.window + 1);
+      hi[i] = a.causal ? min(qpos, a.S - 1) : a.S - 1;
+    }
     if (!live[i]) hi[i] = -1;
     if (hi[i] >= lo[i]) {
       w_lo = min(w_lo, lo[i]);
@@ -298,7 +344,11 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) prefill_rows_kernel(AttnArgs
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int kp = k0 + n * 8 + 2 * tig + e;
-            const bool vis = kp >= lo[i] && kp <= hi[i];
+            bool vis = kp >= lo[i] && kp <= hi[i];
+            if constexpr (Tree)
+              vis = vis && (kp < qoff    ? kp >= c_lo[i]
+                            : kp == qoff ? root[i]
+                                         : kp >= b_lo[i] && kp <= b_hi[i]);
             s[n][2 * i + e] = vis ? s[n][2 * i + e] : -INFINITY;
             mx = fmaxf(mx, s[n][2 * i + e]);
           }
@@ -381,18 +431,22 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) prefill_rows_kernel(AttnArgs
   }
 }
 
-// The bfloat16 prefill (qoff 0, T = S, chain), dense or paged.  Returns
-// a cudaError_t as int: cudaErrorInvalidValue for arguments it does not
-// take, cudaErrorInvalidConfiguration when the card's opt-in shared
-// memory per block is below what the head dim needs.
-template <bool Paged>
-inline int launch_prefill_rows(const AttnArgs& a, int head_dim,
-                               cudaStream_t stream) {
-  if (a.Hk <= 0 || a.Hq % a.Hk != 0 || a.T <= 0 || a.B <= 0 ||
-      a.qoff != nullptr || a.T != a.S || a.tree_w != 0 || a.tree_g != 0)
+// Launch the loop: Tree = true is the tree mode (tree_w > 0, decode
+// only), false the chain.  Returns a cudaError_t as int:
+// cudaErrorInvalidValue for arguments it does not take,
+// cudaErrorInvalidConfiguration when the card's opt-in shared memory per
+// block is below what the head dim needs.
+template <bool Paged, bool Tree = false>
+inline int launch_mma_rows(const AttnArgs& a, int head_dim,
+                           cudaStream_t stream) {
+  if (a.Hk <= 0 || a.Hq % a.Hk != 0 || a.T <= 0 || a.B <= 0)
     return (int)cudaErrorInvalidValue;
   if (Paged && (a.tbl == nullptr || a.page <= 0 || a.n_tbl <= 0 ||
                 a.S > a.n_tbl * a.page))
+    return (int)cudaErrorInvalidValue;
+  if (Tree ? (a.tree_w <= 0 || a.tree_g <= 0 || !a.causal ||
+              a.qoff == nullptr || a.T != a.tree_w * a.tree_g + 1)
+           : (a.tree_w != 0 || a.tree_g != 0))
     return (int)cudaErrorInvalidValue;
   const int nrows = a.T * (a.Hq / a.Hk);
   const dim3 grid((nrows + kPfRows - 1) / kPfRows, a.Hk, a.B);
@@ -402,21 +456,21 @@ inline int launch_prefill_rows(const AttnArgs& a, int head_dim,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-#define REPRO_PREFILL_CASE(DD)                                                  \
+#define REPRO_MMA_CASE(DD)                                                      \
   {                                                                             \
     constexpr int bytes = prefill_smem_bytes<DD>();                             \
     if (bytes > optin) return (int)cudaErrorInvalidConfiguration;               \
-    err = cudaFuncSetAttribute(prefill_rows_kernel<DD, Paged>,                  \
+    err = cudaFuncSetAttribute(mma_rows_kernel<DD, Paged, Tree>,                \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,     \
                                bytes);                                          \
     if (err != cudaSuccess) return (int)err;                                    \
-    prefill_rows_kernel<DD, Paged><<<grid, block, bytes, stream>>>(a);          \
+    mma_rows_kernel<DD, Paged, Tree><<<grid, block, bytes, stream>>>(a);        \
     return (int)cudaGetLastError();                                             \
   }
-  if (head_dim == 32) REPRO_PREFILL_CASE(32)
-  if (head_dim == 64) REPRO_PREFILL_CASE(64)
-  if (head_dim == 128) REPRO_PREFILL_CASE(128)
-#undef REPRO_PREFILL_CASE
+  if (head_dim == 32) REPRO_MMA_CASE(32)
+  if (head_dim == 64) REPRO_MMA_CASE(64)
+  if (head_dim == 128) REPRO_MMA_CASE(128)
+#undef REPRO_MMA_CASE
   return (int)cudaErrorInvalidValue;
 }
 

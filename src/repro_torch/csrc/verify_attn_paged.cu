@@ -12,14 +12,17 @@
 //
 // What bounds it on an H100: as verify_attn.cu, reading the live pages
 // once (lanes x live length x 2 kv heads x 128 x 2 bytes x 2 for K and
-// V) for T <= 4.  The Pallas kernel DMAs every one of the n_tbl pages of
-// a lane (the trash page included) and masks; this one walks only the
-// tiles of [pad, lengths + T - 1], so the trash page and table entries
-// past lengths + T are never read, and it adds one table lookup per
-// loaded key row.  It keeps the dense kernel's limits (T blocks per lane,
-// each reading the live K/V alone; fp32 FMA), and on the card its output
-// equals, bit for bit, the dense kernel's on gather_view(pool, tbl).
+// V) for T <= 13, and in practice the few blocks of a small batch.  The
+// Pallas kernel DMAs every one of the n_tbl pages of a lane (the trash
+// page included) and masks; this one walks only the tiles of [pad,
+// lengths + T - 1], so the trash page and table entries past lengths + T
+// are never read, and it adds one table lookup per loaded key row.  It
+// launches the dense kernel's loops with Paged = true (the same route by
+// dtype and head dim: tensor cores for bfloat16 at D = 128, else the
+// FMA loop), and on the card its output equals, bit for bit, the dense
+// kernel's on gather_view(pool, tbl).
 #include "attn_rows.cuh"
+#include "prefill_rows.cuh"
 
 extern "C" int repro_verify_attn_paged(const void* q, const void* k_pool,
                                        const void* v_pool, const int* tbl,
@@ -49,6 +52,9 @@ extern "C" int repro_verify_attn_paged(const void* q, const void* k_pool,
   a.tree_g = tree_g;
   a.scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 128)
+    return tree_w > 0 ? repro::launch_mma_rows<true, true>(a, D, st)
+                      : repro::launch_mma_rows<true, false>(a, D, st);
   return tree_w > 0 ? repro::launch_attn_rows<true, true>(a, D, dtype, st)
                     : repro::launch_attn_rows<true, false>(a, D, dtype, st);
 }

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port, one package per TPU kernel:
+"""Hand-written Hopper kernels of the port, one package per TPU kernel,
+and ``linear_rows``, the prefill's row-invariant matrix product:
 ``<name>/ref.py`` is the plain PyTorch version, ``<name>/ops.py`` the
 wrapper that runs the plain version on CPU tensors and the CUDA kernel
 (``csrc/<name>.cu``, built by ``kernels/build.py``) on CUDA tensors."""

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "repro_verify_attn_paged": [_P] * 7 + [_I] * 11 + [_P],
     # feats, tokens, mask, pf, pt, cnt, B, T, F, elem_bytes, stream
     "repro_extract_pack": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w, y, ws, M, N, K, splits, dtype, stream
+    "repro_linear_rows": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

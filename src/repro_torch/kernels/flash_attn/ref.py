@@ -4,7 +4,7 @@ paged.
 
 Used by the CPU path and as the card's comparison for the CUDA kernels
 (``csrc/flash_attn.cu``, ``csrc/flash_attn_paged.cu``): the same masked attention computed densely in
-fp32 through ``models/attention.attend``.  Rows with no visible key
+float64 through ``models/attention.attend``.  Rows with no visible key
 (query positions before ``pad[b]``) are zeros, as in the kernel."""
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def prefill_mask(b: int, s: int, pad=None, *, causal: bool = True,
 def flash_attention_ref(q, k, v, pad=None, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0):
     """q: (B, S, Hq, D); k, v: (B, S, Hk, D); pad: optional (B,) int.
-    Returns (B, S, Hq, D) in q.dtype; math in fp32."""
+    Returns (B, S, Hq, D) in q.dtype; math in float64."""
     b, s = q.shape[:2]
     mask = prefill_mask(b, s, pad, causal=causal, window=window,
                         device=q.device)

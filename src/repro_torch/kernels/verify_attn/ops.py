@@ -1,7 +1,8 @@
 """Decode-side attention, dense and paged, chain or draft-tree mode: CUDA
 kernels on the card, plain versions on the CPU.  Unlike the JAX
 ``ops.verify_attn``, which sends a tree to its plain version off the TPU,
-a tree on a CUDA tensor launches the kernel."""
+a tree on a CUDA tensor launches the kernel.  On the card the dtype and
+head dim pick the kernel's loop (``verify_route``)."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +12,14 @@ from repro_torch.kernels import (HEAD_DIMS, check_pools, dtype_code,
 from repro_torch.kernels.verify_attn.ref import (
     verify_attention_paged_ref, verify_attention_ref,
     verify_attention_tree_paged_ref, verify_attention_tree_ref)
+
+
+def verify_route(dtype, head_dim: int) -> str:
+    """The loop a CUDA call runs, as ``csrc/verify_attn.cu`` picks it:
+    "tensor_core_bf16" (``csrc/prefill_rows.cuh``, mma.sync) for
+    bfloat16 at head_dim 128, else "fma" (``csrc/attn_rows.cuh``)."""
+    return ("tensor_core_bf16" if dtype == torch.bfloat16 and head_dim == 128
+            else "fma")
 
 
 def _tree(tree, t: int):
@@ -32,7 +41,8 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
 
     CPU tensors take the plain version (``verify_attention_ref``, or
     ``verify_attention_tree_ref`` for a tree); CUDA tensors launch
-    ``csrc/verify_attn.cu`` in either mode or raise.
+    ``csrc/verify_attn.cu`` in either mode, on the loop
+    ``verify_route`` names, or raise.
     ``verify_attention.launches`` counts the kernel launches,
     ``verify_attention.tree_launches`` those in tree mode."""
     width, gamma = _tree(tree, q.shape[1])
@@ -90,7 +100,8 @@ def verify_attention_paged(q, k_pool, v_pool, tbl, lengths, pad=None, *,
 
     CPU tensors take the plain version (``verify_attention_paged_ref``,
     or ``verify_attention_tree_paged_ref`` for a tree); CUDA tensors
-    launch ``csrc/verify_attn_paged.cu`` in either mode or raise.
+    launch ``csrc/verify_attn_paged.cu`` in either mode, on the loop
+    ``verify_route`` names, or raise.
     ``verify_attention_paged.launches`` counts the kernel launches,
     ``verify_attention_paged.tree_launches`` those in tree mode."""
     width, gamma = _tree(tree, q.shape[1])

@@ -52,10 +52,14 @@ def apply_rope(x, positions, theta: float):
 
 # -------------------------------------------------- full masked attention
 def attend(q, k, v, mask, *, softcap: float = 0.0):
-    """Reference masked attention, fp32 throughout.
+    """Reference masked attention, float64 throughout.
 
     q: (B, T, Hq, D); k, v: (B, S, Hk, D); mask: broadcastable to
-    (B, Hk, G, T, S).  Returns (B, T, Hq, D) in q.dtype.  A row whose
+    (B, Hk, G, T, S).  Returns (B, T, Hq, D) in q.dtype.  Both products
+    and the softmax between them run in float64, which no BLAS path
+    computes in reduced precision: the result does not depend on
+    ``torch.get_float32_matmul_precision()`` or on the fp32 kernel a
+    process's CPU BLAS picks.  A row whose
     mask is all False is zeros (the JAX reference averages it
     uniformly; the kernels define it as zeros, and this is their plain
     version).  Unlike the kernels, masked keys are weighted by an exact
@@ -65,8 +69,8 @@ def attend(q, k, v, mask, *, softcap: float = 0.0):
     b, t, hq, d = q.shape
     hk = k.shape[2]
     g = hq // hk
-    qr = q.float().reshape(b, t, hk, g, d)
-    scores = torch.einsum("btkgd,bskd->bkgts", qr, k.float()) / math.sqrt(d)
+    qr = q.double().reshape(b, t, hk, g, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qr, k.double()) / math.sqrt(d)
     if softcap and softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
     scores = scores.masked_fill(~mask, float("-inf"))
@@ -76,7 +80,7 @@ def attend(q, k, v, mask, *, softcap: float = 0.0):
     p = p.masked_fill(~mask, 0.0)
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom > 0, denom, torch.ones_like(denom))
-    out = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    out = torch.einsum("bkgts,bskd->btkgd", p, v.double())
     return out.reshape(b, t, hq, d).to(q.dtype)
 
 
@@ -118,20 +122,23 @@ def attn_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _proj(x, w):
-    """einsum('btd,dhk->bthk') as one matrix product."""
+def _proj(x, w, linear=torch.matmul):
+    """einsum('btd,dhk->bthk') as one matrix product, ``linear(x, w2d)``."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    return linear(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def qkv_proj(params, x):
-    return (_proj(x, params["wq"]), _proj(x, params["wk"]),
-            _proj(x, params["wv"]))
+def qkv_proj(params, x, linear=torch.matmul):
+    """``linear``: the matrix product (``torch.matmul``, or the prefill's
+    ``kernels.linear_rows.ops.linear_rows``)."""
+    return (_proj(x, params["wq"], linear), _proj(x, params["wk"], linear),
+            _proj(x, params["wv"], linear))
 
 
-def out_proj(params, o):
+def out_proj(params, o, linear=torch.matmul):
     h, k, d = params["wo"].shape
-    return o.reshape(*o.shape[:-2], h * k) @ params["wo"].reshape(h * k, d)
+    return linear(o.reshape(*o.shape[:-2], h * k),
+                  params["wo"].reshape(h * k, d))
 
 
 def scatter_kv(cache, new, lengths):
@@ -156,10 +163,11 @@ def scatter_kv(cache, new, lengths):
 
 
 def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
-                           *, pools=None, tbl_rows=None):
+                           *, pools=None, tbl_rows=None, linear=torch.matmul):
     """Causal prefill over the whole prompt.  positions: (B, S) RoPE
     positions; pad: optional (B,) left-pad widths.  Returns
-    (out, (k, v)), k/v kept for the cache.
+    (out, (k, v)), k/v kept for the cache.  ``linear`` computes the
+    q/k/v and output projections (``qkv_proj``).
 
     Paged (``pools`` = this layer's (k_pool, v_pool), each (NP + 1, P,
     Hk, D), and ``tbl_rows`` (B, n_tbl) page ids): the prompt's K/V is
@@ -167,7 +175,7 @@ def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
     attention reads it back through the table."""
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_paged)
-    q, k, v = qkv_proj(params, x)
+    q, k, v = qkv_proj(params, x, linear)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if pools is None:
@@ -180,7 +188,7 @@ def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
         o = flash_attention_paged(q, k_pool, v_pool, tbl_rows, pad,
                                   causal=True, window=cfg.window,
                                   softcap=cfg.attn_logit_softcap)
-    return out_proj(params, o), (k, v)
+    return out_proj(params, o, linear), (k, v)
 
 
 def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,

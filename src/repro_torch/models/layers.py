@@ -43,13 +43,14 @@ def ffn_specs(cfg: ModelConfig, kind: str, d_ff: int | None = None) -> dict:
     }
 
 
-def ffn(params, x, kind: str = FFN_SWIGLU):
+def ffn(params, x, kind: str = FFN_SWIGLU, linear=torch.matmul):
+    """SwiGLU; ``linear`` computes its three matrix products."""
     if kind != FFN_SWIGLU:
         raise NotImplementedError(
             f"FFN {kind!r} is not ported yet (ROADMAP queue 1: other model families)")
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    return (F.silu(g) * u) @ params["w_down"]
+    g = linear(x, params["w_gate"])
+    u = linear(x, params["w_up"])
+    return linear(F.silu(g) * u, params["w_down"])
 
 
 def embed_specs(cfg: ModelConfig) -> dict:
@@ -67,7 +68,10 @@ def head_specs(cfg: ModelConfig) -> dict:
     return {"w": ParamSpec((cfg.d_model, cfg.vocab_size), (EMBED, VOCAB))}
 
 
-def lm_head(params, embed_params, x, tie: bool):
+def lm_head(params, embed_params, x, tie: bool, linear=torch.matmul):
+    """``linear`` computes the product (a tied head's weight is the
+    transposed embedding, which ``linear_rows`` does not take on the
+    card)."""
     if tie:
-        return x @ embed_params["tok"].to(x.dtype).T
-    return x @ params["w"].to(x.dtype)
+        return linear(x, embed_params["tok"].to(x.dtype).T)
+    return linear(x, params["w"].to(x.dtype))

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.models import attention as attn
 from repro_torch.models.config import (ATTN, ATTN_SW, FFN_SWIGLU, BlockDef,
                                        ModelConfig)
@@ -99,15 +100,17 @@ def _slices(group, repeats: int, pi: int):
 
 # ============================================================== layer apply
 def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad, pools=None,
-                        tbl_rows=None):
+                        tbl_rows=None, *, linear):
     """Returns (x, (k, v)).  ``pools``/``tbl_rows``: the paged prefill
-    (``attention.self_attention_prefill``)."""
+    (``attention.self_attention_prefill``).  ``linear``: the matrix
+    product of the projections and the FFN."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, kv = attn.self_attention_prefill(cfg, p["mix"], h, positions, pad,
-                                          pools=pools, tbl_rows=tbl_rows)
+                                          pools=pools, tbl_rows=tbl_rows,
+                                          linear=linear)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + ffn(p["ffn"], h2), kv
+    return x + ffn(p["ffn"], h2, linear=linear), kv
 
 
 def apply_layer_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths,
@@ -159,7 +162,8 @@ def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
                 entry = pool_group[f"pos{pi}"]
                 pools = (entry["k"][i], entry["v"][i])
             x, (k, v) = apply_layer_prefill(cfg, per_pos[pi][i], x,
-                                            positions, pad, pools, tbl_rows)
+                                            positions, pad, pools, tbl_rows,
+                                            linear=linear_rows)
             if cache_group is not None:
                 entry = cache_group[f"pos{pi}"]
                 entry["k"][i, :, :s] = k
@@ -207,7 +211,10 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     """Prompt pass.  tokens: (B, S); pad: optional (B,) left-pad widths
     (RoPE positions max(arange(S) - pad, 0)).  Returns dict(logits (B,V)
     fp32 at the last position, cache (K/V placed in max_len buffers),
-    captures (B, S, 3D)).
+    captures (B, S, 3D)).  Its matrix products whose row count is the
+    refill's (the projections, the FFN and the last-position LM head)
+    run through ``linear_rows``, so a prompt's rows do not depend on the
+    prompts that share its refill.
 
     Paged: ``pools`` is a live paged cache (``init_cache(...,
     page_size=P)``) and ``tbl_rows`` (B, n_tbl) the page ids of each
@@ -237,7 +244,7 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     x, caps = _run_groups(cfg, params, x, runner)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(params.get("head"), params["embed"], x[:, -1],
-                     cfg.tie_embeddings)
+                     cfg.tie_embeddings, linear=linear_rows)
     cache["lengths"] = torch.full((b,), s, dtype=torch.int32, device=dev)
     cache["pad"] = (torch.zeros((b,), dtype=torch.int32, device=dev)
                     if pad is None else pad.to(torch.int32, copy=True))

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                 flash_attention_paged)
+from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                  verify_attention_paged)
 from repro_torch.models import transformer as T
@@ -48,10 +49,13 @@ from repro_torch.models.layers import embed, lm_head, rmsnorm
 Step = Tuple[str, Callable, Sequence[str], str]
 
 
-def prefill_steps(cfg, params, pad, positions) -> List[Step]:
+def prefill_steps(cfg, params, pad, positions,
+                  linear=linear_rows) -> List[Step]:
     """The dense target prefill of ``transformer.prefill`` as steps over
     a state dict that starts as {"tokens": (B, S) int}.  Every output
-    but the last ("logits", (B, V) at the last position) is (B, S, ...)."""
+    but the last ("logits", (B, V) at the last position) is (B, S, ...).
+    ``linear``: the matrix product of the projections, the FFN and the
+    LM head (``transformer.prefill``'s is ``linear_rows``)."""
     eps, theta = cfg.norm_eps, cfg.rope_theta
     steps: List[Step] = [("embed", lambda t: embed(params["embed"], t,
                                                    cfg.act_dtype),
@@ -67,11 +71,14 @@ def prefill_steps(cfg, params, pad, positions) -> List[Step]:
                 steps += [
                     (tag + "norm1", lambda x, p=p: rmsnorm(p["norm1"], x, eps),
                      ["x"], "h"),
-                    (tag + "q_proj", lambda h, m=mix: _proj(h, m["wq"]),
+                    (tag + "q_proj", lambda h, m=mix: _proj(h, m["wq"],
+                                                            linear),
                      ["h"], "q"),
-                    (tag + "k_proj", lambda h, m=mix: _proj(h, m["wk"]),
+                    (tag + "k_proj", lambda h, m=mix: _proj(h, m["wk"],
+                                                            linear),
                      ["h"], "k"),
-                    (tag + "v_proj", lambda h, m=mix: _proj(h, m["wv"]),
+                    (tag + "v_proj", lambda h, m=mix: _proj(h, m["wv"],
+                                                            linear),
                      ["h"], "v"),
                     (tag + "q_rope", lambda q: apply_rope(q, positions, theta),
                      ["q"], "q"),
@@ -80,18 +87,18 @@ def prefill_steps(cfg, params, pad, positions) -> List[Step]:
                     (tag + "attention", lambda q, k, v: flash_attention(
                         q, k, v, pad, causal=True, window=cfg.window,
                         softcap=cfg.attn_logit_softcap), ["q", "k", "v"], "o"),
-                    (tag + "o_proj", lambda o, m=mix: out_proj(m, o),
+                    (tag + "o_proj", lambda o, m=mix: out_proj(m, o, linear),
                      ["o"], "a"),
                     (tag + "residual1", lambda x, a: x + a, ["x", "a"], "x"),
                     (tag + "norm2", lambda x, p=p: rmsnorm(p["norm2"], x, eps),
                      ["x"], "h"),
-                    (tag + "ffn_gate", lambda h, f=ffn: h @ f["w_gate"],
+                    (tag + "ffn_gate", lambda h, f=ffn: linear(h, f["w_gate"]),
                      ["h"], "g"),
-                    (tag + "ffn_up", lambda h, f=ffn: h @ f["w_up"],
+                    (tag + "ffn_up", lambda h, f=ffn: linear(h, f["w_up"]),
                      ["h"], "u"),
                     (tag + "ffn_act", lambda g, u: torch.nn.functional.silu(g)
                      * u, ["g", "u"], "g"),
-                    (tag + "ffn_down", lambda g, f=ffn: g @ f["w_down"],
+                    (tag + "ffn_down", lambda g, f=ffn: linear(g, f["w_down"]),
                      ["g"], "a"),
                     (tag + "residual2", lambda x, a: x + a, ["x", "a"], "x"),
                 ]
@@ -99,7 +106,8 @@ def prefill_steps(cfg, params, pad, positions) -> List[Step]:
         ("final_norm", lambda x: rmsnorm(params["final_norm"], x,
                                          cfg.norm_eps), ["x"], "x"),
         ("logits", lambda x: lm_head(params.get("head"), params["embed"],
-                                     x[:, -1], cfg.tie_embeddings).float(),
+                                     x[:, -1], cfg.tie_embeddings,
+                                     linear=linear).float(),
          ["x"], "logits"),
     ]
     return steps
@@ -111,7 +119,8 @@ def _rows(t: torch.Tensor, row: int, pad: int) -> torch.Tensor:
     return t[row] if t.dim() == 2 and t.is_floating_point() else t[row, pad:]
 
 
-def _run(cfg, params, toks, pad, row, force: Optional[Dict] = None):
+def _run(cfg, params, toks, pad, row, force: Optional[Dict] = None,
+         linear=linear_rows):
     """Run the steps; returns ({op: the prompt's output rows}, {op: its
     input rows}, logits).  With ``force`` (another run's input rows),
     each op's inputs get those rows of the prompt first."""
@@ -121,7 +130,8 @@ def _run(cfg, params, toks, pad, row, force: Optional[Dict] = None):
                             - pad[:, None].long(), min=0)
     state = {"tokens": toks}
     outs, ins = {}, {}
-    for name, fn, keys, key in prefill_steps(cfg, params, pad, positions):
+    for name, fn, keys, key in prefill_steps(cfg, params, pad, positions,
+                                             linear):
         args = [state[k] for k in keys]
         if force is not None:
             args = [a.clone() for a in args]
@@ -133,10 +143,13 @@ def _run(cfg, params, toks, pad, row, force: Optional[Dict] = None):
     return outs, ins, state["logits"]
 
 
-def cobatch_diff(cfg, params, a, b) -> Dict:
+def cobatch_diff(cfg, params, a, b, linear=linear_rows) -> Dict:
     """``a``, ``b``: (tokens (R, S) int32, pad (R,) int32, row) of two
     refill batches on one device whose given rows hold the same prompt,
-    right-aligned (S - pad[row] equal).  Returns a dict: the prompt
+    right-aligned (S - pad[row] equal).  ``linear``: the matrix product
+    of the steps; another than ``transformer.prefill``'s (``linear_rows``,
+    e.g. ``torch.matmul`` to read the library's) skips the check that
+    the steps compute ``transformer.prefill``.  Returns a dict: the prompt
     length, both batches' shapes and pads, ``first_departing_op`` (or
     None) with the largest difference of its rows, ``departing_alone``
     (list), whether the K/V rows of every layer, the hidden states of
@@ -147,13 +160,15 @@ def cobatch_diff(cfg, params, a, b) -> Dict:
     if la != lb or not torch.equal(ta[ra, int(pa[ra]):], tb[rb, int(pb[rb]):]):
         raise ValueError("the two rows do not hold the same prompt")
     with torch.no_grad():
-        out_a, in_a, logits_a = _run(cfg, params, ta, pa, ra)
-        ref = T.prefill(cfg, params, ta, pad=pa)["logits"]
-        if not torch.equal(ref, logits_a):
-            raise RuntimeError("prefill_steps no longer computes "
-                                 "transformer.prefill")
-        out_b, _, _ = _run(cfg, params, tb, pb, rb)
-        forced, _, _ = _run(cfg, params, tb, pb, rb, force=in_a)
+        out_a, in_a, logits_a = _run(cfg, params, ta, pa, ra, linear=linear)
+        if linear is linear_rows:
+            ref = T.prefill(cfg, params, ta, pad=pa)["logits"]
+            if not torch.equal(ref, logits_a):
+                raise RuntimeError("prefill_steps no longer computes "
+                                   "transformer.prefill")
+        out_b, _, _ = _run(cfg, params, tb, pb, rb, linear=linear)
+        forced, _, _ = _run(cfg, params, tb, pb, rb, force=in_a,
+                            linear=linear)
     names = list(out_a)
     same = {n: torch.equal(out_a[n], out_b[n]) for n in names}
     first = next((n for n in names if not same[n]), None)
