@@ -31,10 +31,14 @@ Phases, one JSON line each:
            (p_bf16_rel_l2_emulated), the verify rows theirs
            (verify_path: tensor_core_bf16, asserted); every row with a
            library call gets ms_over_library_ms.  linear_rows, the
-           prefill's row-invariant matrix product, at glm4-9b's (K, N)
-           of k_proj, q_proj/o_proj, ffn_up, ffn_down and lm_head: each
-           row of x gives the same row, torch.equal, at M = 1, 2, 126,
-           128, 992 and 3968; its time against torch.matmul (which is
+           prefill's row-invariant matrix product (path wgmma_tma: the
+           wgmma kernel fed by TMA; its tile, read from the built
+           kernel and held to the one k_splits counts, and its K-split
+           per product named), at glm4-9b's (K, N) of k_proj, q_proj/o_proj,
+           ffn_up, ffn_down and lm_head: each row of x gives the same
+           row, torch.equal, at M = 1, 2, 63, 64, 65, 126, 127, 128,
+           129, 992 and 3968 and shifted by one row, a one-hot x gives
+           w's rows exactly; its time against torch.matmul (which is
            also its plain version) at M 3968 and 128.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
@@ -455,28 +459,43 @@ SHIFT_KINDS_OF = {
 LINEAR_KN = (("k_proj", 4096, 256), ("q_proj/o_proj", 4096, 4096),
              ("ffn_up/gate", 4096, 13696), ("ffn_down", 13696, 4096),
              ("lm_head", 4096, 151552))
-LINEAR_M = (1, 2, 126, 128, 992, 3968)
+LINEAR_M = (1, 2, 63, 64, 65, 126, 127, 128, 129, 992, 3968)
 
 
 def _linear_rows_row(g):
     """linear_rows at glm4-9b's (K, N): every row of x gives the same
-    row, bit for bit, at each M of LINEAR_M (the first M rows of one x);
-    error against float64 on 128 rows and at most 4096 columns; time
-    against torch.matmul (the plain version, and the library call) at
-    M 3968 and 128.  The row's headline is ffn_down at M 3968 (a refill
-    of 8 x 496 rows)."""
+    row, bit for bit, at each M of LINEAR_M (the first M rows of one x,
+    and the M rows after its first); a one-hot x (row r picks row r mod
+    K of w) gives those rows of w exactly; error against float64 on 128
+    rows and at most 4096 columns; time against torch.matmul (the plain
+    version, and the library call) at M 3968 and 128.  The row's
+    headline is ffn_down at M 3968 (a refill of 8 x 496 rows)."""
+    from repro_torch.kernels.linear_rows import ops
     from repro_torch.kernels.linear_rows.ops import k_splits, linear_rows
     from repro_torch.kernels.linear_rows.ref import linear_rows_ref
     dev = torch.device("cuda")
     bf = torch.bfloat16
+    top_m = max(LINEAR_M)
+    tile = ops.tile()
+    assert (tile["BN"], tile["BK"]) == (ops.BLOCK_N, ops.BLOCK_K), \
+        f"linear_rows: k_splits counts {ops.BLOCK_N} x {ops.BLOCK_K}, " \
+        f"the kernel's tile is {tile}"
     cases = []
     for name, k, n in LINEAR_KN:
-        x = torch.randn((max(LINEAR_M), k), generator=g, device=dev).to(bf)
+        x = torch.randn((top_m + 1, k), generator=g, device=dev).to(bf)
         w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(bf)
         full = linear_rows(x, w)
         for m in LINEAR_M:
             assert torch.equal(linear_rows(x[:m], w), full[:m]), \
                 f"linear_rows {name}: rows move with M = {m}"
+            assert torch.equal(linear_rows(x[1:m + 1], w), full[1:m + 1]), \
+                f"linear_rows {name}: rows move with a shift at M = {m}"
+        rows = torch.arange(top_m + 1, device=dev) % k
+        onehot = torch.zeros_like(x)
+        onehot[torch.arange(top_m + 1, device=dev), rows] = 1
+        assert torch.equal(linear_rows(onehot, w), w[rows]), \
+            f"linear_rows {name}: one-hot rows are not w's rows"
+        del onehot, rows
         cols = slice(0, min(n, 4096))
         want = x[:128].double() @ w[:, cols].double()
         got = full[:128, cols].double()
@@ -485,9 +504,10 @@ def _linear_rows_row(g):
         rel = float((got - want).norm() / want.norm())
         assert rel < 3e-3, f"linear_rows {name}: rel L2 {rel} vs float64"
         case = dict(product=name, K=k, N=n, k_splits=k_splits(n, k),
-                    rows_equal_across_M=list(LINEAR_M), rel_l2_vs_f64=rel,
+                    rows_equal_across_M=list(LINEAR_M), shift_equal=True,
+                    one_hot_exact=True, rel_l2_vs_f64=rel,
                     max_abs_err=float((got - want).abs().max()))
-        for m in (max(LINEAR_M), 128):
+        for m in (top_m, 128):
             xm = x[:m]
             b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2.0 * m * n * k)
             case[f"M{m}"] = dict(
@@ -498,16 +518,19 @@ def _linear_rows_row(g):
         cases.append(case)
         del x, w, full
     head = next(c for c in cases if c["product"] == "ffn_down")
-    top = head[f"M{max(LINEAR_M)}"]
+    top = head[f"M{top_m}"]
     return dict(name="linear_rows", route="cuda",
                 source="src/repro_torch/csrc/linear_rows.cu",
                 replaces="none: no Pallas kernel; the products of "
                          "src/repro/models/attention.py:373 qkv_proj and the "
                          "FFN, which XLA computes",
+                path="wgmma_tma",
+                tile=tile,
+                k_splits={c["product"]: c["k_splits"] for c in cases},
                 max_abs_err=max(c["max_abs_err"] for c in cases),
                 rel_l2_err=max(c["rel_l2_vs_f64"] for c in cases),
                 **top, library="torch.matmul (also the plain version)",
-                shape=f"ffn_down x ({max(LINEAR_M)}, {head['K']}) @ w "
+                shape=f"ffn_down x ({top_m}, {head['K']}) @ w "
                       f"({head['K']}, {head['N']}) bf16", cases=cases)
 
 

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "repro_extract_pack": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, y, ws, M, N, K, splits, dtype, stream
     "repro_linear_rows": [_P] * 4 + [_I] * 5 + [_P],
+    # out: BM, BN, BK, STAGES of the bf16 tile
+    "repro_linear_rows_tile": [_P],
 }
 
 

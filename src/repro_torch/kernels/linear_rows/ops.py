@@ -11,21 +11,38 @@ products and its last-position LM head through ``linear_rows``; decode
 keeps ``torch.matmul`` (its M = B·T is fixed for a serve)."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import dtype_code, on_cpu, require, stream_of
 from repro_torch.kernels.linear_rows.ref import linear_rows_ref
 
-BLOCK_N = 128       # the bf16 kernel's column tile
-BLOCK_K = 64        # its K chunk
+# The bf16 kernel's column tile and K chunk (kLrBN, kLrBK of
+# csrc/linear_rows.cu; a CPU test holds them to the source, ``tile()``
+# reads the built kernel's on the card).
+BLOCK_N, BLOCK_K = 256, 64
+SPLIT_BLOCKS = 4    # blocks that one row tile aims at through the split
 
 
 def k_splits(n: int, k: int) -> int:
     """How many parts the kernel splits K into, from (N, K) alone: about
-    64 blocks for a single row tile, at least 8 K chunks a part.  Never
-    from M, so a row's sum runs over the same parts for every M."""
+    SPLIT_BLOCKS blocks for a single row tile, at least 8 K chunks a
+    part.  Never from M, so a row's sum runs over the same parts for
+    every M.  The fp32 partials cost S·M·N·8 bytes: two parts made q/o
+    (K 4096) a third slower at M 3968 on an H100 (tiles.py), so only
+    narrow products (glm4-9b's k/v, N 256) split."""
     tiles = -(-n // BLOCK_N)
-    return max(1, min(64 // tiles, -(-k // BLOCK_K) // 8))
+    return max(1, min(SPLIT_BLOCKS // tiles, -(-k // BLOCK_K) // 8))
+
+
+def tile() -> dict:
+    """The built bf16 kernel's tile: BM, BN, BK and STAGES (the card's
+    library, built on first call)."""
+    from repro_torch.kernels.build import check, library
+    out = (ctypes.c_int * 4)()
+    check(library().repro_linear_rows_tile(out), "linear_rows tile")
+    return dict(zip(("BM", "BN", "BK", "STAGES"), out))
 
 
 def linear_rows(x, w):

@@ -1,15 +1,43 @@
-"""Time tile shapes of ``linear_rows``' bfloat16 kernel on the card.
+"""Time ``linear_rows``' bfloat16 kernel on the card: its tile shapes,
+and the wrapper's host time apart from its device time.
 
 Builds one library that instantiates ``launch_linear_rows_bf16`` of
-``csrc/linear_rows.cu`` at each shape of ``SHAPES`` (into
+``csrc/linear_rows.cu`` (the wgmma kernel fed by TMA; 128 rows a block)
+at each (column tile BN, ring stages) of ``SHAPES`` (into
 ``build/repro_torch/tiles/``), then times each at glm4-9b's products
-(M 3968 and 128; K-splits 1, 4 and ``k_splits(N, K)``) against
-``torch.matmul``, and prints one JSON line per (K, N, M): the median ms
-of 20 launches (CUDA events) of each shape and split.  A shape whose
-output is off ``x @ w`` by a relative L2 error above 1e-2 prints
-"bad".  The production shape is ``kLrBM ... kLrStages`` of the source::
+(M 3968 and 128; K-splits 1, 2, 4 and ``k_splits(N, K)``, as far as the
+K chunks go) against ``torch.matmul``, and prints one JSON line per
+(K, N, M): the median ms of 20 launches (CUDA events) of each shape and
+split through the C entry, keyed ``BN<bn>x<stages>S<s>``.  A shape
+whose output is off ``x @ w`` by a relative L2 error above 1e-2 prints
+"bad".  The production shape is ``kLrBN``, ``kLrStages`` of the source.
+BN 128 stays in ``SHAPES`` as the measured alternative to the
+production BN 256, the one a fixed (N, K)-keyed variant for narrow
+products would take.
+
+The same line splits one call of the production path three ways:
+``wrapper_ms``, CUDA events around one ``ops.linear_rows`` call (what
+chip_smoke.py reads); ``device_ms``, the kernels' own time per call
+from ``torch.profiler``; ``wrapper_host_ms`` and ``entry_host_ms``, the
+host's time per call of the wrapper and of the bare C entry (tensor-map
+encodes and launch), 20 calls enqueued without a sync.  Where a host
+time exceeds the device time, the event time reads the host::
 
     PYTHONPATH=src python -m repro_torch.kernels.linear_rows.tiles
+
+``--wrapper`` prints only the wrapper's split and needs nothing of this
+module's build, so the same file, copied into another tree's package,
+reads that tree's ``linear_rows``.
+
+What it read on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, kernel
+table row 7): at M 3968 and S 1, BN 256 with 4 stages was the fastest
+shape at q/o (0.209 ms; torch.matmul 0.197), ffn up/gate (0.698;
+0.607) and ffn_down (0.623; 0.641), BN 128 was 14-20 % slower, and
+every split of those products cost 17-70 %: the tensor cores bound
+them, and a block's lone ring fill and epilogue hold them at
+635-715 TFLOP/s.  At M 128 BN 128 was fastest, at S 1 or 2 (16-54
+blocks of BN 256 at S 1 leave most of the 132 SMs idle), but no shape
+or split may follow M.
 """
 from __future__ import annotations
 
@@ -17,18 +45,18 @@ import ctypes
 import json
 import statistics
 import subprocess
+import sys
+import time
 
 import torch
 
 from repro_torch.kernels.build import (_CSRC, ARCH_FLAGS, BUILD_DIR,
                                        NVCC_FLAGS, _nvcc)
-from repro_torch.kernels.linear_rows.ops import k_splits
+from repro_torch.kernels.linear_rows.ops import BLOCK_K, k_splits, linear_rows
 
-# (BM, BN, BK, WM, WN, STAGES)
-SHAPES = ((128, 128, 32, 64, 32, 4), (128, 128, 32, 64, 64, 4),
-          (128, 256, 32, 64, 64, 3), (128, 128, 64, 64, 64, 3),
-          (256, 128, 32, 64, 64, 3), (128, 256, 64, 64, 64, 3),
-          (128, 128, 32, 32, 64, 4))
+# (BN, STAGES): column tile and ring depth (a stage is 16 KB of x and
+# BN·128 bytes of w; the ring fits 227 KB)
+SHAPES = ((128, 4), (128, 6), (256, 3), (256, 4))
 PRODUCTS = ((4096, 4096), (4096, 13696), (13696, 4096), (4096, 256))
 
 
@@ -85,26 +113,77 @@ def _ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def _host_ms(fn, iters: int = 20) -> float:
+    """The host's time per call of ``fn`` in ms, ``iters`` calls enqueued
+    back to back (the queue never fills, so no call waits on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host
+
+
+def _device_ms(fn, iters: int = 20) -> float:
+    """The ``linear_rows`` kernels' device time per call of ``fn`` in ms,
+    read by ``torch.profiler`` over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "linear_rows" in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / iters / 1e3
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    lib = _library()
+    shapes = "--wrapper" not in sys.argv[1:]
+    lib = production = None
+    if shapes:
+        from repro_torch.kernels.linear_rows.ops import tile
+        lib, production = _library(), tile()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    ops_file = sys.modules[linear_rows.__module__].__file__
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "shapes": SHAPES}), flush=True)
+                      "nvidia_smi": smi, "linear_rows": ops_file,
+                      "shapes": SHAPES if shapes else None}), flush=True)
     for k, n in PRODUCTS:
         w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).bfloat16()
         for m in (3968, 128):
             x = torch.randn((m, k), generator=g, device=dev).bfloat16()
             ref = (x @ w).float()
-            row = {"K": k, "N": n, "M": m,
-                   "matmul": _ms(lambda: torch.matmul(x, w))}
-            for s in sorted({1, 4, k_splits(n, k)}):
+            row = {"K": k, "N": n, "M": m, "S": k_splits(n, k),
+                   "matmul": _ms(lambda: torch.matmul(x, w)),
+                   "wrapper_ms": _ms(lambda: linear_rows(x, w)),
+                   "device_ms": _device_ms(lambda: linear_rows(x, w)),
+                   "wrapper_host_ms": _host_ms(lambda: linear_rows(x, w))}
+            if not shapes:
+                print(json.dumps(row), flush=True)
+                continue
+            chunks = -(-k // BLOCK_K)
+            splits = {1, 2, 4, k_splits(n, k)}
+            stream = torch.cuda.current_stream().cuda_stream
+            for s in sorted(p for p in splits if p <= chunks):
                 ws = torch.empty((s, m, n), dtype=torch.float32, device=dev)
                 y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-                stream = torch.cuda.current_stream().cuda_stream
-                for v in range(len(SHAPES)):
+                for v, (bn, stages) in enumerate(SHAPES):
+                    key = f"BN{bn}x{stages}S{s}"
                     def call(v=v):
                         return lib.tile_linear(v, x.data_ptr(), w.data_ptr(),
                                                y.data_ptr(), ws.data_ptr(), m,
@@ -112,10 +191,13 @@ def main():
                     err = call()
                     torch.cuda.synchronize()
                     if err:
-                        row[f"v{v}S{s}"] = f"CUDA error {err}"
+                        row[key] = f"CUDA error {err}"
                         continue
                     rel = float((y.float() - ref).norm() / ref.norm())
-                    row[f"v{v}S{s}"] = _ms(call) if rel < 1e-2 else "bad"
+                    row[key] = _ms(call) if rel < 1e-2 else "bad"
+                    if s == k_splits(n, k) and (bn, stages) == (
+                            production["BN"], production["STAGES"]):
+                        row["entry_host_ms"] = _host_ms(call)
             print(json.dumps(row), flush=True)
 
 

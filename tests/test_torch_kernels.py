@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     flash_attention_paged_ref, flash_attention_ref)
 from repro_torch.kernels.linear_rows.ops import (  # noqa: E402
-    k_splits, linear_rows)
+    BLOCK_K, BLOCK_N, k_splits, linear_rows, tile)
 from repro_torch.kernels.verify_attn.ops import (  # noqa: E402
     verify_attention, verify_attention_paged, verify_route)
 from repro_torch.kernels.verify_attn.ref import (  # noqa: E402
@@ -309,7 +309,51 @@ def test_linear_rows_plain_on_cpu():
     # glm4-9b's products: k/v (N 256), q/o, ffn up/gate, ffn down, lm_head
     assert [k_splits(n, k) for k, n in ((4096, 256), (4096, 4096),
                                          (4096, 13696), (13696, 4096),
-                                         (4096, 151552))] == [8, 2, 1, 2, 1]
+                                         (4096, 151552))] == [4, 1, 1, 1, 1]
+
+
+def test_linear_rows_tile_matches_source():
+    """``k_splits`` counts the kernel's own K chunks over its own column
+    tiles: ops.py's BLOCK_N and BLOCK_K are the production tile's of
+    csrc/linear_rows.cu (kLrBN, kLrBK)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.linear_rows import ops
+    src = (Path(ops.__file__).resolve().parents[2] / "csrc"
+           / "linear_rows.cu").read_text()
+
+    def const(name):
+        found = re.findall(rf"\b{name}\s*=\s*(\d+)", src)
+        assert len(found) == 1, (name, found)
+        return int(found[0])
+
+    assert (ops.BLOCK_N, ops.BLOCK_K) == (const("kLrBN"), const("kLrBK"))
+
+
+# (K, N) of glm4-9b (k/v, q/o, ffn up/gate, ffn down, lm_head) and of
+# tide_tiny (q/o, k/v, ffn up/gate, ffn down, lm_head)
+SPLIT_KN = [(4096, 256), (4096, 4096), (4096, 13696), (13696, 4096),
+            (4096, 151552), (128, 128), (128, 64), (128, 512), (512, 128),
+            (128, 512)]
+
+
+@pytest.mark.parametrize("k,n", SPLIT_KN)
+def test_linear_rows_k_splits_contract(k, n):
+    """The split over K: 1 <= S <= the kernel's K chunks, at least 8
+    chunks a part when S > 1 (as the kernel's split_range cuts them,
+    covering every chunk once, in order), and S the same at every row
+    count: k_splits is given N and K and nothing else."""
+    import inspect
+
+    assert list(inspect.signature(k_splits).parameters) == ["n", "k"]
+    s = k_splits(n, k)
+    chunks = -(-k // BLOCK_K)
+    assert 1 <= s <= chunks
+    bounds = [part * chunks // s for part in range(s + 1)]
+    assert bounds[0] == 0 and bounds[-1] == chunks
+    if s > 1:
+        assert min(b - a for a, b in zip(bounds, bounds[1:])) >= 8
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -716,15 +760,23 @@ LINEAR_KN = [(4096, 256), (4096, 4096), (4096, 13696), (13696, 4096),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,k,n", [
-    ("bfloat16", k, n) for k, n in LINEAR_KN + [(128, 64), (512, 128)]] + [
-    ("float32", k, n) for k, n in LINEAR_KN[:2] + [(128, 64), (512, 128)]])
+    ("bfloat16", k, n) for k, n in LINEAR_KN + [(128, 64), (512, 128),
+                                                (256, 136)]] + [
+    ("float32", k, n) for k, n in LINEAR_KN[:2] + [(128, 64), (512, 128),
+                                                   (256, 136)]])
 def test_cuda_linear_rows_m_invariant(cuda, dtype, k, n):
     """Row r of ``linear_rows(x, w)`` depends only on row r of x and on
-    w, bit for bit: the first M rows at M in {1, 2, 126, 128, 992}, and
+    w, bit for bit: the first M rows at M in {1, 2, 63, 64, 65, 126, 127,
+    128, 129, 992} (a consumer warpgroup is 64 rows, a block 128), and
     rows shifted by one, equal the rows of the widest call.  Against
     float64 x @ w: relative L2 below 3e-3 in bf16 (one rounding of the
-    output, 2^-9) and 1e-5 in fp32."""
-    ms = (1, 2, 126, 128, 992)
+    output, 2^-9) and 1e-5 in fp32.  N 136 ends in a partial 64-column
+    box.  A one-hot x (row r picks row r mod K of w) gives those rows of
+    w exactly, which a wrong swizzle or transpose of either operand does
+    not.  The built kernel's tile is the one ``k_splits`` counts."""
+    t = tile()
+    assert (t["BN"], t["BK"]) == (BLOCK_N, BLOCK_K), t
+    ms = (1, 2, 63, 64, 65, 126, 127, 128, 129, 992)
     x = _randn((max(ms) + 1, k), dtype, cuda, 91)
     w = _randn((k, n), dtype, cuda, 92) / k ** 0.5
     n0 = linear_rows.launches
@@ -741,6 +793,10 @@ def test_cuda_linear_rows_m_invariant(cuda, dtype, k, n):
     assert torch.isfinite(got).all()
     rel = float((got - want).norm() / want.norm())
     assert rel < (3e-3 if dtype == "bfloat16" else 1e-5), rel
+    rows = torch.arange(x.shape[0], device=cuda) % k
+    onehot = torch.zeros_like(x)
+    onehot[torch.arange(x.shape[0], device=cuda), rows] = 1
+    assert torch.equal(linear_rows(onehot, w), w[rows]), "one-hot rows"
 
 
 # ------------------------- the verify routes, each named and held (card)
