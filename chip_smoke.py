@@ -11,9 +11,20 @@ Phases, one JSON line each:
            glm4-9b main-path shapes (batch 8, prompt 512, cache 1024,
            lanes with left pad; verify at T = 1, 4 and 511), held per
            element at rtol = atol = 2e-2 (bf16) on the rows that see a
-           key, extract_pack exactly: max abs error, finiteness, median
-           kernel ms, plain ms, and the ms of one PyTorch library call
-           computing the same function.  The paged kernels (page 16,
+           key, extract_pack exactly (called as decode_superstep calls
+           it, into a slot of (K, B, T, F) signal buffers; path
+           ballot_uint4): max abs error, finiteness, plain ms, the ms
+           of one PyTorch library call computing the same function, and
+           each kernel's call three ways (repro_torch.obs.timing): ms,
+           the median of CUDA events around one call (they bracket the
+           wrapper's host work); device_ms, its kernel's device time per
+           launch (torch.profiler); host_ms, the host's time per call,
+           calls enqueued without a sync.  The phase runs in a process
+           of its own (chip_smoke.py --kernels) and reads every
+           device_ms last: after a torch.profiler session each kernel
+           launch of the process costs the host more
+           (repro_torch/obs/timing.py), which no event or host time of
+           the phase, and no serve, may pay.  The paged kernels (page 16,
            shuffled tables, lanes 0-3 sharing their first 8 pages) are
            also held bit for bit (torch.equal) against the dense kernel
            on the gathered view; their library yardstick is two calls,
@@ -99,7 +110,8 @@ Phases, one JSON line each:
            before the next is built.
 
 Then the kernel table (``{"kernels": [...]}``: eight rows, each with its
-launch count from the main-path serve that runs it), the nvidia-smi
+launch count from the main-path serve that runs it and its ms,
+device_ms and host_ms), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
 at once.
@@ -108,6 +120,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from functools import partial
 import os
 import statistics
 import subprocess
@@ -145,21 +158,27 @@ def smi() -> str:
     return out.stdout.decode().strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Median ms of ``fn`` by CUDA events around each call."""
+    from repro_torch.obs.timing import event_ms
+    return event_ms(fn, iters)
+
+
+# the port's CUDA kernels, by the names the profiler lists
+PORT_KERNELS = ("attn_rows", "mma_rows", "extract_pack", "linear_rows")
+
+
+def kernel_ms(call: partial, iters: int = 20) -> dict:
+    """A kernel wrapper's call, its arguments bound now (its device time
+    is read at the end of the phase, when loop variables have moved on),
+    timed three ways
+    (``repro_torch.obs.timing.split_ms``): ``ms``, CUDA events around one
+    call (they bracket the wrapper's host work too); ``host_ms``, the
+    host's time per call, calls enqueued without a sync; ``device_ms``,
+    the port's kernels' device time per call (torch.profiler), read at
+    the end of the phase by ``resolve``."""
+    from repro_torch.obs.timing import split_ms
+    return split_ms(call, PORT_KERNELS, iters)
 
 
 def bound(nbytes: float, flops: float):
@@ -187,12 +206,17 @@ def hold(out, ref, what: str):
 
 
 # ------------------------------------------------------------------ env
-def phase_env():
+def _use_checkout():
+    """Refuse to run without a card; import the port from this checkout."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
+
+
+def phase_env():
+    _use_checkout()
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.library()
@@ -258,7 +282,7 @@ def phase_kernels():
         prefill_path="tensor_core_bf16",
         max_abs_err=err, rel_l2_err=rel,
         p_bf16_rel_l2_emulated=_p_bf16_rel_l2(q, k, v, mask, ref, valid),
-        ms=cuda_ms(lambda: flash_attention(q, k, v, pad)),
+        **kernel_ms(partial(flash_attention, q, k, v, pad)),
         plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, pad), iters=5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: _sdpa(q, k, v, mask)),
@@ -288,7 +312,7 @@ def phase_kernels():
         b_ms, b_by = bound(nbytes, 4.0 * nvis * D)
         cases.append(dict(
             T=t, max_abs_err=e, rel_l2_err=rel_t,
-            ms=cuda_ms(lambda: verify_attention(qt, kc, vc, ln, pd)),
+            **kernel_ms(partial(verify_attention, qt, kc, vc, ln, pd)),
             plain_ms=cuda_ms(lambda: verify_attention_ref(qt, kc, vc, ln, pd),
                              iters=5),
             bound_ms=b_ms, bound_by=b_by,
@@ -302,8 +326,8 @@ def phase_kernels():
         replaces="src/repro/kernels/verify_attn/kernel.py:214",
         verify_path=vpath,
         max_abs_err=max(c["max_abs_err"] for c in cases),
-        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")},
+        **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
         shape=f"T=4 q {(B, 4, HQ, D)} cache {tuple(kc.shape)} bf16",
         cases=cases))
 
@@ -358,8 +382,8 @@ def phase_kernels():
         b_ms, b_by = bound(nbytes, 4.0 * nvis * D)
         pcases.append(dict(
             T=t, max_abs_err=e, rel_l2_err=rel_t, equal_dense=True,
-            ms=cuda_ms(lambda: verify_attention_paged(qt, kpool, vpool, tb,
-                                                      ln, pd)),
+            **kernel_ms(partial(verify_attention_paged, qt, kpool, vpool,
+                                tb, ln, pd)),
             plain_ms=cuda_ms(lambda: verify_attention_paged_ref(
                 qt, kpool, vpool, tb, ln, pd), iters=5),
             bound_ms=b_ms, bound_by=b_by,
@@ -372,8 +396,8 @@ def phase_kernels():
         replaces="src/repro/kernels/verify_attn/kernel.py:157",
         verify_path=vpath,
         max_abs_err=max(c["max_abs_err"] for c in pcases),
-        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")},
+        **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
         library="pool[tbl] gather + scaled_dot_product_attention (2 calls)",
         shape=f"T=4 q {(B, 4, HQ, D)} pools {tuple(kpool.shape)} "
               f"tbl {tuple(full.shape)} bf16", cases=pcases))
@@ -400,7 +424,7 @@ def phase_kernels():
         replaces="src/repro/kernels/flash_attn/kernel.py:115",
         prefill_path="tensor_core_bf16",
         max_abs_err=err, rel_l2_err=rel, equal_dense=True,
-        ms=cuda_ms(lambda: flash_attention_paged(q, kpool, vpool, tb, pad)),
+        **kernel_ms(partial(flash_attention_paged, q, kpool, vpool, tb, pad)),
         plain_ms=cuda_ms(lambda: flash_attention_paged_ref(
             q, kpool, vpool, tb, pad), iters=5),
         bound_ms=b_ms, bound_by=b_by,
@@ -412,35 +436,65 @@ def phase_kernels():
 
     rows += _tree_rows(rnd, kc, vc, pad, kpool, vpool, table)
 
-    # ---- extract_pack (exact)
+    # ---- extract_pack (exact), called as decode_superstep calls it: into
+    # one slot of a superstep's (K, B, T, F) signal buffers
     F_ = GLM["F"]
     T4 = GLM["GAMMA"] + 1
     feats = rnd(B, T4, F_)
     toks = torch.randint(0, 151552, (B, T4), generator=g, device=dev,
                          dtype=torch.int32)
     msk = torch.rand((B, T4), generator=g, device=dev) < 0.6
+    bufs = (torch.zeros((8, B, T4, F_), dtype=bf, device=dev),
+            torch.zeros((8, B, T4), dtype=torch.int32, device=dev),
+            torch.zeros((8, B), dtype=torch.int32, device=dev))
+    slot = tuple(x[3] for x in bufs)
     got = pack_signals(feats, toks, msk)
+    pack_signals(feats, toks, msk, out=slot)
     want = extract_pack_ref(feats, toks, msk)
     torch.cuda.synchronize()
-    for a, w in zip(got, want):
-        assert torch.equal(a, w), "extract_pack is not exact"
-    nbytes = 2 * 2 * feats.numel() + 2 * 4 * toks.numel() + msk.numel() + 4 * B
+    for a, s_, w in zip(got, slot, want):
+        assert torch.equal(a, w) and torch.equal(s_, w), \
+            "extract_pack is not exact"
+    # each accepted row read once, every row, token and count written once
+    kept = int(msk.sum())
+    nbytes = (2 * F_ * (kept + B * T4) + 4 * (kept + B * T4) + msk.numel()
+              + 4 * B)
     b_ms, b_by = bound(nbytes, 0.0)
     rows.append(dict(
         name="extract_pack", route="cuda",
         source="src/repro_torch/csrc/extract_pack.cu",
         replaces="src/repro/kernels/extract_pack/kernel.py:46",
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: pack_signals(feats, toks, msk), iters=50),
+        path="ballot_uint4", max_abs_err=0.0,
+        **kernel_ms(partial(pack_signals, feats, toks, msk, out=slot),
+                    iters=50),
         plain_ms=cuda_ms(lambda: extract_pack_ref(feats, toks, msk), iters=20),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"feats {tuple(feats.shape)} bf16"))
+        library="none: no single PyTorch call compacts by a mask",
+        shape=f"feats {tuple(feats.shape)} bf16, {kept} rows kept, out= "
+              f"slot 3 of {tuple(bufs[0].shape)}"))
     rows.append(_linear_rows_row(g))
+    # every device time after every event and host time (obs/timing.py)
+    from repro_torch.obs.timing import resolve
+    rows = resolve(rows)
     for row in rows:
         kinds = SHIFT_KINDS_OF[row["name"]]
         row["pad_shift_equal"] = _pad_shift_equal(kinds) if kinds else None
         if row["library_ms"]:
             row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
+    emit({"phase": "kernels", "kernels": rows})
+    return rows
+
+
+def phase_kernels_apart():
+    """The kernels phase in a process of its own (``chip_smoke.py
+    --kernels``), which ends before the serves: after its torch.profiler
+    sessions (device_ms) every kernel launch of the process costs the
+    host more (obs/timing.py), and the serves must not pay that.
+    Returns its rows."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--kernels"], stdout=subprocess.PIPE,
+                          timeout=900, check=True)
+    rows = json.loads(proc.stdout.decode().splitlines()[-1])["kernels"]
     emit({"phase": "kernels", "kernels": rows})
     return rows
 
@@ -511,7 +565,7 @@ def _linear_rows_row(g):
             xm = x[:m]
             b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2.0 * m * n * k)
             case[f"M{m}"] = dict(
-                ms=cuda_ms(lambda: linear_rows(xm, w)),
+                **kernel_ms(partial(linear_rows, xm, w)),
                 plain_ms=cuda_ms(lambda: linear_rows_ref(xm, w)),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=cuda_ms(lambda: torch.matmul(xm, w)))
@@ -615,8 +669,8 @@ def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
         replaces="src/repro/kernels/verify_attn/kernel.py:27",
         verify_path=verify_route(qt.dtype, D),
         max_abs_err=err, rel_l2_err=rel, w1_equal_chain=True,
-        ms=cuda_ms(lambda: verify_attention(qt, kc, vc, ln, pd,
-                                            tree=(W, G))),
+        **kernel_ms(partial(verify_attention, qt, kc, vc, ln, pd,
+                            tree=(W, G))),
         plain_ms=cuda_ms(lambda: verify_attention_tree_ref(
             qt, kc, vc, ln, pd, tree=(W, G)), iters=5),
         bound_ms=b_ms, bound_by=b_by,
@@ -645,8 +699,8 @@ def _tree_rows(rnd, kc, vc, pad, kpool, vpool, table):
         replaces="src/repro/kernels/verify_attn/kernel.py:134",
         verify_path=verify_route(qt.dtype, D),
         max_abs_err=perr, rel_l2_err=prel, equal_dense=True,
-        ms=cuda_ms(lambda: verify_attention_paged(qt, kpool, vpool, tb, ln,
-                                                  pd, tree=(W, G))),
+        **kernel_ms(partial(verify_attention_paged, qt, kpool, vpool, tb,
+                            ln, pd, tree=(W, G))),
         plain_ms=cuda_ms(lambda: verify_attention_tree_paged_ref(
             qt, kpool, vpool, tb, ln, pd, tree=(W, G)), iters=5),
         bound_ms=pb_ms, bound_by=pb_by,
@@ -1254,7 +1308,7 @@ def profile_against(eng, which, blocking):
 
 def main():
     phase_env()
-    rows = phase_kernels()
+    rows = phase_kernels_apart()
     phase_ladder()
     launches, eng, dense, dense_streams = phase_serve()
     phase_cobatch(eng)
@@ -1276,7 +1330,8 @@ def main():
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
         for row in rows]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1285,4 +1340,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--kernels"]:
+        _use_checkout()
+        phase_kernels()
+    else:
+        main()

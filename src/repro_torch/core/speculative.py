@@ -431,23 +431,32 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
       3. commits tokens: per-request budget clamp, optional EOS cut,
          active-mask update,
       4. packs the kept positions' training signals with the
-         ``extract_pack`` kernel.
+         ``extract_pack`` kernel, straight into round k's slot of the
+         superstep's (K, ...) signal buffers.
 
     A round with no active lane, and every round after it, is skipped
-    (state and caches pass through, telemetry zero).  Returns
-    dict(cache, dcache, state, rounds, host_syncs) where ``rounds`` holds
-    the (K, ...)-stacked per-round telemetry."""
+    (state and caches pass through, telemetry and signal slots zero).
+    Returns dict(cache, dcache, state, rounds, host_syncs) where
+    ``rounds`` holds the (K, ...)-stacked per-round telemetry and the
+    signal buffers (``sig_feats``, ``sig_tokens``, ``sig_counts``)."""
     from repro_torch.kernels.extract_pack.ops import pack_signals
 
     _require_greedy(greedy)
     gp1 = gamma + 1
     dev = state.active.device
     b = state.active.shape[0]
-    f = state.carry.feats.shape[-1]
+    pos = torch.arange(gp1, device=dev)[None, :]
+    if collect_signals:
+        # round k packs into slot k; a skipped round's slot stays zero
+        sig = (torch.zeros((rounds, b, gp1, state.carry.feats.shape[-1]),
+                           dtype=state.carry.feats.dtype, device=dev),
+               torch.zeros((rounds, b, gp1), dtype=torch.int32, device=dev),
+               torch.zeros((rounds, b), dtype=torch.int32, device=dev))
+        slots = list(zip(*(buf.unbind(0) for buf in sig)))
     ys_all = []
     syncs = 0
     skipping = False
-    for _ in range(rounds):
+    for k in range(rounds):
         st = state
         n_active = st.active.sum().to(torch.int32)
         if threshold_table is None:
@@ -471,14 +480,6 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                   "n_sig": torch.zeros((), dtype=torch.int32, device=dev),
                   "ema": st.accept_ema,
                   "valid": torch.zeros((), dtype=torch.bool, device=dev)}
-            if collect_signals:
-                ys["sig_feats"] = torch.zeros((b, gp1, f),
-                                              dtype=st.carry.feats.dtype,
-                                              device=dev)
-                ys["sig_tokens"] = torch.zeros((b, gp1), dtype=torch.int32,
-                                               device=dev)
-                ys["sig_counts"] = torch.zeros((b,), dtype=torch.int32,
-                                               device=dev)
             ys_all.append(ys)
             continue
 
@@ -510,7 +511,6 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
         n_eff = torch.where(act, torch.minimum(n_commit, remaining),
                             torch.zeros_like(n_commit))
         if eos_id is not None:
-            pos = torch.arange(gp1, device=dev)[None, :]
             is_eos = (tokens == eos_id) & (pos < n_eff[:, None])
             has_eos = is_eos.any(dim=1)
             first_eos = is_eos.to(torch.int32).argmax(dim=1).to(torch.int32)
@@ -528,15 +528,16 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
               "alpha": alpha, "ell": ell, "n_sig": n_sig.to(torch.int32),
               "ema": ema, "valid": torch.ones((), dtype=torch.bool, device=dev)}
         if collect_signals:
-            sig_mask = torch.arange(gp1, device=dev)[None, :] < n_eff[:, None]
-            ys["sig_feats"], ys["sig_tokens"], ys["sig_counts"] = \
-                pack_signals(captures, tokens, sig_mask)
+            pack_signals(captures, tokens, pos < n_eff[:, None], out=slots[k])
         ys_all.append(ys)
         state = SuperstepState(
             carry, active_after, gen_new, ema, st.sid,
             torch.where(st.active, st.step_idx + 1, st.step_idx))
 
-    rounds_out = {k: torch.stack([ys[k] for ys in ys_all])
-                  for k in ys_all[0]}
+    rounds_out = {key: torch.stack([ys[key] for ys in ys_all])
+                  for key in ys_all[0]}
+    if collect_signals:
+        rounds_out.update(sig_feats=sig[0], sig_tokens=sig[1],
+                          sig_counts=sig[2])
     return {"cache": cache, "dcache": dcache, "state": state,
             "rounds": rounds_out, "host_syncs": syncs}

@@ -18,16 +18,17 @@ products would take.
 The same line splits one call of the production path three ways:
 ``wrapper_ms``, CUDA events around one ``ops.linear_rows`` call (what
 chip_smoke.py reads); ``device_ms``, the kernels' own time per call
-from ``torch.profiler``; ``wrapper_host_ms`` and ``entry_host_ms``, the
-host's time per call of the wrapper and of the bare C entry (tensor-map
-encodes and launch), 20 calls enqueued without a sync.  Where a host
-time exceeds the device time, the event time reads the host::
+from ``torch.profiler``, read after every other number (obs/timing.py);
+``wrapper_host_ms`` and ``entry_host_ms``, the host's time per call of
+the wrapper and of the bare C entry (tensor-map encodes and launch),
+20 calls enqueued without a sync.  Where a host time exceeds the device
+time, the event time reads the host::
 
     PYTHONPATH=src python -m repro_torch.kernels.linear_rows.tiles
 
 ``--wrapper`` prints only the wrapper's split and needs nothing of this
-module's build, so the same file, copied into another tree's package,
-reads that tree's ``linear_rows``.
+module's build, so the same file, copied into another tree's package
+with ``obs/timing.py``, reads that tree's ``linear_rows``.
 
 What it read on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, kernel
 table row 7): at M 3968 and S 1, BN 256 with 4 stages was the fastest
@@ -43,16 +44,15 @@ from __future__ import annotations
 
 import ctypes
 import json
-import statistics
 import subprocess
 import sys
-import time
 
 import torch
 
 from repro_torch.kernels.build import (_CSRC, ARCH_FLAGS, BUILD_DIR,
                                        NVCC_FLAGS, _nvcc)
 from repro_torch.kernels.linear_rows.ops import BLOCK_K, k_splits, linear_rows
+from repro_torch.obs.timing import event_ms, host_ms, resolve, split_ms
 
 # (BN, STAGES): column tile and ring depth (a stage is 16 KB of x and
 # BN·128 bytes of w; the ring fits 227 KB)
@@ -97,55 +97,6 @@ def _library() -> ctypes.CDLL:
     return dll
 
 
-def _ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def _host_ms(fn, iters: int = 20) -> float:
-    """The host's time per call of ``fn`` in ms, ``iters`` calls enqueued
-    back to back (the queue never fills, so no call waits on the card)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
-    return host
-
-
-def _device_ms(fn, iters: int = 20) -> float:
-    """The ``linear_rows`` kernels' device time per call of ``fn`` in ms,
-    read by ``torch.profiler`` over ``iters`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and "linear_rows" in e.key:
-            t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    return us / iters / 1e3
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -163,18 +114,20 @@ def main():
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "linear_rows": ops_file,
                       "shapes": SHAPES if shapes else None}), flush=True)
+    rows = []
     for k, n in PRODUCTS:
         w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).bfloat16()
         for m in (3968, 128):
             x = torch.randn((m, k), generator=g, device=dev).bfloat16()
             ref = (x @ w).float()
+            split = split_ms(lambda x=x, w=w: linear_rows(x, w),
+                             ("linear_rows",))
             row = {"K": k, "N": n, "M": m, "S": k_splits(n, k),
-                   "matmul": _ms(lambda: torch.matmul(x, w)),
-                   "wrapper_ms": _ms(lambda: linear_rows(x, w)),
-                   "device_ms": _device_ms(lambda: linear_rows(x, w)),
-                   "wrapper_host_ms": _host_ms(lambda: linear_rows(x, w))}
+                   "matmul": event_ms(lambda: torch.matmul(x, w)),
+                   "wrapper_ms": split["ms"], "device_ms": split["device_ms"],
+                   "wrapper_host_ms": split["host_ms"]}
+            rows.append(row)
             if not shapes:
-                print(json.dumps(row), flush=True)
                 continue
             chunks = -(-k // BLOCK_K)
             splits = {1, 2, 4, k_splits(n, k)}
@@ -194,11 +147,13 @@ def main():
                         row[key] = f"CUDA error {err}"
                         continue
                     rel = float((y.float() - ref).norm() / ref.norm())
-                    row[key] = _ms(call) if rel < 1e-2 else "bad"
+                    row[key] = event_ms(call) if rel < 1e-2 else "bad"
                     if s == k_splits(n, k) and (bn, stages) == (
                             production["BN"], production["STAGES"]):
-                        row["entry_host_ms"] = _host_ms(call)
-            print(json.dumps(row), flush=True)
+                        row["entry_host_ms"] = host_ms(call)
+    # the profiler's reads last (obs/timing.py)
+    for row in resolve(rows):
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.paging import gather_view  # noqa: E402
-from repro_torch.kernels.extract_pack.ops import pack_signals  # noqa: E402
+from repro_torch.kernels.extract_pack.ops import MAX_T, pack_signals  # noqa: E402
 from repro_torch.kernels.extract_pack.ref import extract_pack_ref  # noqa: E402
 from repro_torch.kernels.flash_attn.ops import (  # noqa: E402
     flash_attention, flash_attention_paged)
@@ -293,6 +293,87 @@ def test_wrappers_take_plain_version_on_cpu():
                       pack_signals.launches), "CPU calls counted as launches"
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pack_out_slot_on_cpu(dtype):
+    """``pack_signals(..., out=slot)`` on the CPU writes extract_pack_ref's
+    result into one slot of stacked (K, B, T, F), (K, B, T) and (K, B)
+    buffers, returns that slot, leaves every other slot as it was and
+    counts no launch (decode_superstep packs each round so)."""
+    rng = np.random.default_rng(14)
+    b, t, f, k, at = 3, 4, 64, 5, 2
+    feats = torch.tensor(rng.normal(size=(b, t, f)),
+                         dtype=getattr(torch, dtype))
+    toks = torch.tensor(rng.integers(0, 999, size=(b, t)), dtype=torch.int32)
+    mask = torch.tensor([[True, False, True, True], [False] * 4,
+                         [False, True, False, True]])
+    bufs = (torch.full((k, b, t, f), 7.0, dtype=feats.dtype),
+            torch.full((k, b, t), 7, dtype=torch.int32),
+            torch.full((k, b), 7, dtype=torch.int32))
+    before = tuple(x.clone() for x in bufs)
+    n0 = pack_signals.launches
+    got = pack_signals(feats, toks, mask, out=tuple(x[at] for x in bufs))
+    rest = [i for i in range(k) if i != at]
+    for buf, old, g, w in zip(bufs, before, got,
+                              extract_pack_ref(feats, toks, mask)):
+        assert g.data_ptr() == buf[at].data_ptr()
+        assert torch.equal(buf[at], w)
+        assert torch.equal(buf[rest], old[rest])
+    assert pack_signals.launches == n0, "CPU calls counted as launches"
+
+
+def _bad_pack_out(kind, b, t, f):
+    """A (packed_feats, packed_tokens, counts) for (B, T, F) fp32 feats
+    with one fault of ``kind``."""
+    pf = torch.zeros((b, t, f))
+    pt = torch.zeros((b, t), dtype=torch.int32)
+    cnt = torch.zeros((b,), dtype=torch.int32)
+    return {"pair": (pf, pt),
+            "feats_shape": (torch.zeros((b, t, f + 1)), pt, cnt),
+            "feats_dtype": (pf.double(), pt, cnt),
+            "tokens_shape": (pf, torch.zeros((b, t + 1), dtype=torch.int32),
+                             cnt),
+            "tokens_dtype": (pf, pt.long(), cnt),
+            "counts_shape": (pf, pt, cnt[:, None]),
+            "device": (pf.to("meta"), pt, cnt),
+            "noncontiguous": (torch.zeros((b, f, t)).transpose(1, 2), pt,
+                              cnt)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["pair", "feats_shape", "feats_dtype",
+                                  "tokens_shape", "tokens_dtype",
+                                  "counts_shape", "device", "noncontiguous"])
+def test_pack_out_refused(kind):
+    """An ``out`` that does not fit the inputs raises (the same
+    ``checked_out`` guards the kernel's path): nothing is converted,
+    reallocated or written elsewhere."""
+    b, t, f = 2, 4, 16
+    feats = torch.ones((b, t, f))
+    toks = torch.ones((b, t), dtype=torch.int32)
+    mask = torch.ones((b, t), dtype=torch.bool)
+    out = _bad_pack_out(kind, b, t, f)
+    with pytest.raises(ValueError):
+        pack_signals(feats, toks, mask, out=out)
+    assert not any(x.any() for x in out if not x.is_meta)
+
+
+def test_timing_resolve_reads_each_deferred_once(monkeypatch):
+    """``obs.timing.resolve`` replaces every Deferred device time in
+    nested dicts and lists by its reading, and reads a Deferred that two
+    places share (a row and its head case) once."""
+    from repro_torch.obs import timing
+    reads = []
+    monkeypatch.setattr(timing, "device_ms",
+                        lambda fn, match, iters: reads.append(match) or fn())
+    d1 = timing.Deferred(lambda: 1.5, ("a",), 20)
+    d2 = timing.Deferred(lambda: 2.5, ("b",), 20)
+    rows = [{"ms": 3.0, "device_ms": d1,
+             "cases": [{"device_ms": d1}, {"device_ms": d2, "T": 1}]}]
+    assert timing.resolve(rows) == [
+        {"ms": 3.0, "device_ms": 1.5,
+         "cases": [{"device_ms": 1.5}, {"device_ms": 2.5, "T": 1}]}]
+    assert sorted(reads) == [("a",), ("b",)]
+
+
 def test_linear_rows_plain_on_cpu():
     """On CPU tensors ``linear_rows`` is ``x @ w`` bit for bit (the CPU
     prefill keeps its products) and counts no launch; its split over K
@@ -443,20 +524,68 @@ def test_cuda_masked_nonfinite_never_leaks(cuda):
     assert not o2[1, :5].any()
 
 
+# beyond PACK_SHAPES (which the Pallas kernel takes too): the main path's
+# shape, T 1, T = MAX_T at density 0.5, all true and all false, and rows
+# of 1001 and 1003 elements, no multiple of 16 bytes (the scalar path)
+CUDA_PACK_SHAPES = PACK_SHAPES + [
+    (8, 4, 12288, 0.6), (5, 1, 4096, 0.5), (3, MAX_T, 1024, 0.5),
+    (2, MAX_T, 512, 1.0), (2, MAX_T, 512, 0.0), (3, 4, 1001, 0.5),
+    (2, 8, 1003, 0.7)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "misaligned", "out_slot"])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,t,f,p", PACK_SHAPES + [(8, 4, 12288, 0.6)])
-def test_cuda_pack_vs_plain_exact(cuda, b, t, f, p, dtype):
+@pytest.mark.parametrize("b,t,f,p", CUDA_PACK_SHAPES)
+def test_cuda_pack_vs_plain_exact(cuda, b, t, f, p, dtype, layout):
+    """The kernel equals the plain version bit for bit, with one launch.
+    ``misaligned``: feats a contiguous view one element past a 16-byte
+    boundary (the scalar path); ``out_slot``: the kernel writes slot 1
+    of stacked buffers and leaves slots 0 and 2 as they were."""
     feats = _randn((b, t, f), dtype, cuda, 12)
+    if layout == "misaligned":
+        flat = torch.empty(b * t * f + 1, dtype=feats.dtype, device=cuda)
+        feats = flat[1:].view(b, t, f).copy_(feats)
+        assert feats.is_contiguous() and feats.data_ptr() % 16
     g = torch.Generator(device="cpu").manual_seed(13)
     toks = torch.randint(0, 999, (b, t), generator=g,
                          dtype=torch.int32).to(cuda)
     mask = (torch.rand((b, t), generator=g) < p).to(cuda)
-    got = pack_signals(feats, toks, mask)
     want = extract_pack_ref(feats, toks, mask)
-    torch.cuda.synchronize()
+    n0 = pack_signals.launches
+    if layout == "out_slot":
+        bufs = tuple(torch.full((3, *w.shape), 7, dtype=w.dtype, device=cuda)
+                     for w in want)
+        got = pack_signals(feats, toks, mask, out=tuple(x[1] for x in bufs))
+        torch.cuda.synchronize()
+        for buf in bufs:
+            assert (buf[0] == 7).all() and (buf[2] == 7).all()
+    else:
+        got = pack_signals(feats, toks, mask)
+        torch.cuda.synchronize()
+    assert pack_signals.launches == n0 + 1
     for a, w in zip(got, want):
         assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["t_past_max", "float64", "out_shape"])
+def test_cuda_pack_refuses(cuda, kind):
+    """What the kernel does not take raises on the card; nothing falls
+    back to the plain version."""
+    b, t, f = 2, MAX_T + 1 if kind == "t_past_max" else 4, 64
+    dtype = torch.float64 if kind == "float64" else torch.bfloat16
+    feats = torch.zeros((b, t, f), dtype=dtype, device=cuda)
+    toks = torch.zeros((b, t), dtype=torch.int32, device=cuda)
+    mask = torch.ones((b, t), dtype=torch.bool, device=cuda)
+    out = None
+    if kind == "out_shape":
+        out = (torch.empty((b, t, f + 8), dtype=dtype, device=cuda),
+               toks.clone(), toks[:, 0].clone())
+    n0 = pack_signals.launches
+    with pytest.raises(ValueError):
+        pack_signals(feats, toks, mask, out=out)
+    assert pack_signals.launches == n0
 
 
 # ------------------------------------------ paged CUDA kernels (card only)

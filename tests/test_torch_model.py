@@ -278,3 +278,39 @@ def test_decode_superstep(models, table):
                                   np.asarray(jo["state"].gen_count))
     np.testing.assert_array_equal(to["state"].active.numpy(),
                                   np.asarray(jo["state"].active))
+
+
+def test_decode_superstep_skipped_round_signals(models):
+    """Budgets so small that every lane is done within the first rounds:
+    the later rounds are skipped.  The signal buffers, packed rounds and
+    the skipped rounds' zero slots alike, equal JAX's: tokens and counts
+    exactly, feats at TOL."""
+    m = models
+    toks, pad, jout, tout, jdc, tdc, jcarry, tcarry, jfirst, tfirst = \
+        _spec_setup(m, True)
+    max_new = np.array([2, 1, 3], np.int32)
+    jst = jspec.init_superstep_state(jcarry, jfirst, jax.random.key(0))
+    tst = spec.init_superstep_state(tcarry, tfirst)
+    jo = jspec.decode_superstep(
+        m["jcfg"], m["jdcfg"], m["jp"], m["jdp"], jout["cache"], jdc, jst,
+        jnp.asarray(max_new), None, rounds=8, gamma=GAMMA)
+    to = spec.decode_superstep(
+        m["cfg"], m["dcfg"], m["tp"], m["tdp"], tout["cache"], tdc, tst,
+        torch.tensor(max_new), None, rounds=8, gamma=GAMMA)
+    jr, tr = jo["rounds"], to["rounds"]
+    valid = tr["valid"].numpy()
+    assert valid[0] and not valid[-1], valid
+    f = tcarry.feats.shape[-1]
+    assert tuple(tr["sig_feats"].shape) == (8, 3, GAMMA + 1, f)
+    assert tuple(tr["sig_tokens"].shape) == (8, 3, GAMMA + 1)
+    assert tuple(tr["sig_counts"].shape) == (8, 3)
+    for k in ("sig_tokens", "sig_counts", "n_eff"):
+        np.testing.assert_array_equal(tr[k].numpy(), np.asarray(jr[k]),
+                                      err_msg=k)
+    np.testing.assert_allclose(_np(tr["sig_feats"]), _np(jr["sig_feats"]),
+                               **TOL)
+    skipped = ~valid
+    assert not tr["sig_feats"][skipped].any()
+    assert not tr["sig_tokens"][skipped].any()
+    assert not tr["sig_counts"][skipped].any()
+    assert tr["sig_counts"][valid].any()
