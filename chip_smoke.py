@@ -51,6 +51,16 @@ Phases, one JSON line each:
            129, 992 and 3968 and shifted by one row, a one-hot x gives
            w's rows exactly; its time against torch.matmul (which is
            also its plain version) at M 3968 and 128.
+           flash_attention_bwd, the backward of the prefill attention
+           (no Pallas twin: the draft's training step), at the glm4-9b
+           draft's training shape, q (8, S, 32, 128) and k/v
+           (8, S, 2, 128) bf16, S 62 (the train phase's 63-token window
+           less its last token) and 512: each gradient against its
+           plain version (float64) as above, equal across two calls
+           (equal_twice), the forward that stores the LSE equal bit for
+           bit to the serving forward (lse_forward_equal), and its time
+           against the autograd backward of
+           scaled_dot_product_attention(is_causal=True, enable_gqa=True).
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
            streams, dense and paged (page 16), tree speculation at
@@ -100,6 +110,20 @@ Phases, one JSON line each:
            attends through the paged kernel in chain mode, the dense
            verify kernel runs only for the refills' draft seeding, and
            no page leaks after a drain.
+  train    the draft's training step (the paper loop's step 8):
+           DraftTrainer.train_cycle on the 16 63-token signal windows
+           the serve phase's SignalExtractor collected (drained right
+           after that serve; 15 train, 1 eval; 8 a step, TRAIN_STEPS
+           steps, adamw), then a replay: a fresh engine with the
+           trained draft serves the same 16 requests, whose streams
+           must equal the serve's.  Reports steps, step ms, the loss
+           curve, train and eval accuracy, peak memory, the forward and
+           backward attention launches per step (2 and 2 with TTT) and
+           the mean accepted length before and after; fails on a
+           non-finite loss, a loss that does not fall or a replay stream
+           that differs.  Every earlier engine is freed first; a
+           step split (forward, backward, update) and a short profile
+           of five steps come last.
   profile  torch.profiler over a short serve on the dense engine right
            after its serve, then on the half-pool paged engine, each
            tree engine and the W = 4 paged tree engine, each right after
@@ -109,8 +133,9 @@ Phases, one JSON line each:
            block the host more than the chain.  Each engine is freed
            before the next is built.
 
-Then the kernel table (``{"kernels": [...]}``: eight rows, each with its
-launch count from the main-path serve that runs it and its ms,
+Then the kernel table (``{"kernels": [...]}``: nine rows, each with its
+launch count from the main-path serve (or, for flash_attention_bwd, the
+train phase) that runs it and its ms,
 device_ms and host_ms), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
@@ -137,7 +162,11 @@ BF16_TOL = 2e-2                  # per element, as tests/test_kernels.py
 # shapes below), so a systematic error above 0.1 % fails
 REL_L2_TOL = 1e-3
 GLM = dict(B=8, S=512, SMAX=1024, HQ=32, HK=2, D=128, F=3 * 4096, GAMMA=3,
-           P=16, TREE_W=4)
+           P=16, TREE_W=4, TRAIN_WINDOW=63)
+# optimizer steps of the train phase: 200 steps of 8 of the 15 train
+# windows, ~107 epochs, enough for the loss to flatten (training until
+# saturation, paper Fig. 5)
+TRAIN_STEPS = 200
 
 
 T_START = time.perf_counter()
@@ -165,7 +194,8 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 
 # the port's CUDA kernels, by the names the profiler lists
-PORT_KERNELS = ("attn_rows", "mma_rows", "extract_pack", "linear_rows")
+PORT_KERNELS = ("attn_rows", "mma_rows", "extract_pack", "linear_rows",
+                "flash_bwd")
 
 
 def kernel_ms(call: partial, iters: int = 20) -> dict:
@@ -473,15 +503,17 @@ def phase_kernels():
         shape=f"feats {tuple(feats.shape)} bf16, {kept} rows kept, out= "
               f"slot 3 of {tuple(bufs[0].shape)}"))
     rows.append(_linear_rows_row(g))
+    rows.append(_flash_bwd_row(g))
     # every device time after every event and host time (obs/timing.py)
-    from repro_torch.obs.timing import resolve
+    from repro_torch.obs.timing import device_ms, resolve
     rows = resolve(rows)
     for row in rows:
         kinds = SHIFT_KINDS_OF[row["name"]]
         row["pad_shift_equal"] = _pad_shift_equal(kinds) if kinds else None
         if row["library_ms"]:
             row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
-    emit({"phase": "kernels", "kernels": rows})
+    emit({"phase": "kernels", "profiler_retries": device_ms.retries,
+          "kernels": rows})
     return rows
 
 
@@ -494,9 +526,9 @@ def phase_kernels_apart():
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--kernels"], stdout=subprocess.PIPE,
                           timeout=900, check=True)
-    rows = json.loads(proc.stdout.decode().splitlines()[-1])["kernels"]
-    emit({"phase": "kernels", "kernels": rows})
-    return rows
+    line = json.loads(proc.stdout.decode().splitlines()[-1])
+    emit(line)
+    return line["kernels"]
 
 
 # the pad-shift placements (repro_torch.obs.cobatch.placed_rows) each
@@ -507,7 +539,7 @@ SHIFT_KINDS_OF = {
     "verify_attention_paged": ("verify_paged4", "verify_paged1"),
     "verify_attention_tree": ("tree",),
     "verify_attention_paged_tree": ("tree_paged",), "extract_pack": (),
-    "linear_rows": ()}
+    "linear_rows": (), "flash_attention_bwd": ()}
 
 # glm4-9b's (name, K, N) of the prefill's products
 LINEAR_KN = (("k_proj", 4096, 256), ("q_proj/o_proj", 4096, 4096),
@@ -586,6 +618,91 @@ def _linear_rows_row(g):
                 **top, library="torch.matmul (also the plain version)",
                 shape=f"ffn_down x ({top_m}, {head['K']}) @ w "
                       f"({head['K']}, {head['N']}) bf16", cases=cases)
+
+
+def _sdpa_bwd(q, k, v, do):
+    """The autograd backward of one causal GQA
+    ``scaled_dot_product_attention`` call (yardstick only): a function
+    computing (dq, dk, dv) from the saved graph."""
+    import torch.nn.functional as F
+    qq, kk, vv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    gdo = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), gdo,
+                                       retain_graph=True)
+
+
+def _flash_bwd_row(g):
+    """flash_attention_bwd at the glm4-9b draft's training shape (batch 8,
+    32/2 heads, D 128, bf16) at S 62 (the train phase's) and 512: each
+    gradient held against its plain version, two calls equal, the
+    LSE-storing forward equal to the serving forward, timed against the
+    autograd backward of SDPA.  The row's numbers are S 62's."""
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_bwd)
+    from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+                                                    flash_attention_lse_ref)
+    from repro_torch.obs.timing import Deferred
+    dev = torch.device("cuda")
+    B, HQ, HK, D = (GLM[k] for k in ("B", "HQ", "HK", "D"))
+    cases = []
+    for s in (GLM["TRAIN_WINDOW"] - 1, GLM["S"]):
+        q, do = (torch.randn((B, s, HQ, D), generator=g, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, s, HK, D), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        served = flash_attention(q, k, v)
+        first = flash_attention_bwd(q, k, v, o, do, lse)
+        again = flash_attention_bwd(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        assert torch.equal(o, served), "the LSE store changed the forward"
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+            "flash_attention_bwd differs between two calls"
+        lse_err = float((lse - flash_attention_lse_ref(q, k)).abs().max())
+        assert lse_err < 1e-4, f"LSE error {lse_err}"
+        want = flash_attention_bwd_ref(q, k, v, o, do, lse)
+        errs = {}
+        for name, x, y in zip(("dq", "dk", "dv"), first, want):
+            assert torch.isfinite(x).all(), f"{name} non-finite"
+            errs[name] = hold(x, y, f"flash_attention_bwd {name} S={s}")
+        # causal (row, key) pairs of every query head
+        vis = B * HQ * s * (s + 1) // 2
+        # q, o, dO read and dq written (q-sized, bf16), k, v read and dk,
+        # dv written, the LSE read (fp32)
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        # the score recompute and the four products dV, dP, dQ, dK
+        b_ms, b_by = bound(nbytes, 5 * 2.0 * vis * D)
+        call = partial(flash_attention_bwd, q, k, v, o, do, lse)
+        cases.append(dict(
+            S=s, lse_forward_equal=True, equal_twice=True,
+            lse_max_abs_err=lse_err,
+            max_abs_err=max(e[0] for e in errs.values()),
+            rel_l2_err={n: e[1] for n, e in errs.items()},
+            **kernel_ms(call),
+            device_ms_passes={p: Deferred(call, (f"flash_bwd_{p}",), 20)
+                              for p in ("delta", "dkdv", "dq")},
+            plain_ms=cuda_ms(lambda: flash_attention_bwd_ref(
+                q, k, v, o, do, lse), iters=5),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(_sdpa_bwd(q, k, v, do))))
+    head = cases[0]
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attn_bwd.cu",
+        replaces="none: no Pallas kernel has a backward (JAX differentiates "
+                 "the jnp attention of src/repro/core/eagle.py:100 "
+                 "_layer_full)",
+        path="fma_fp32_two_pass",
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
+        library="autograd backward of scaled_dot_product_attention("
+                "is_causal=True, enable_gqa=True)",
+        shape=f"q {(B, head['S'], HQ, D)} kv {(B, head['S'], HK, D)} bf16, "
+              "causal, no pad", cases=cases)
 
 
 def _pad_shift_equal(kinds) -> bool:
@@ -946,7 +1063,10 @@ def phase_serve():
         * (7 * cfg.num_layers + 1), launches
     emit({"phase": "serve", **summary, "init_s": round(init_s, 2),
           "nvidia_smi": smi()})
-    return launches, eng, summary, [list(r.generated) for r in reqs]
+    # the train phase's signals: this serve's windows, drained before
+    # any later serve on this engine adds its own
+    signals = eng.extractor.store.drain()
+    return launches, eng, summary, [list(r.generated) for r in reqs], signals
 
 
 def _first_flip(eng, reqs, streams, ref_streams):
@@ -1233,9 +1353,141 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
     return out
 
 
+def phase_train(cfg, params, dcfg, dparams, dense, dense_streams, batches):
+    """The draft's training step on the card (the adaptation loop's
+    synchronous training half): one ``DraftTrainer.train_cycle`` of
+    ``TRAIN_STEPS`` adamw steps on the signal windows the serve phase
+    collected (its 16 requests through a SignalExtractor, drained right
+    after it), then a replay of the same 16 requests on a fresh engine
+    with the trained draft, whose streams must equal the serve's (greedy:
+    the target decides every token, and no op departs with its batch).
+    Returns the backward kernel's launches."""
+    import gc
+    import math
+
+    from repro_torch.core import eagle
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_bwd)
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training.draft_trainer import DraftTrainer
+    dev = torch.device("cuda")
+    keep = ("tokens_per_s", "superstep_ms_median", "rounds", "spec_rounds",
+            "mean_accept_len", "host_syncs_per_superstep")
+    windows = sorted({len(b.tokens) for b in batches})
+    assert windows == [GLM["TRAIN_WINDOW"]] and len(batches) == 16, \
+        (windows, len(batches))
+    trainer = DraftTrainer(cfg, dcfg, params["embed"], device=dev)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = trainer.train_cycle(dparams, batches, epochs=2,
+                              min_steps=TRAIN_STEPS, seed=0)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    steps = res["steps"]
+    losses = [e["loss"] for e in trainer.log]
+    step_ms = [e["ms"] for e in trainer.log]
+    row = {"phase": "train", "model": cfg.name,
+           "draft_params_B": round(eagle.draft_param_count(dcfg) / 1e9, 3),
+           "windows": len(batches), "window": windows[0],
+           "batch": trainer.batch_size, "steps": steps,
+           "seconds": res["seconds"],
+           "step_ms_median": statistics.median(step_ms),
+           "step_ms_first": step_ms[0],
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_last10_mean": statistics.mean(losses[-10:]),
+           "loss_every_20": losses[::20],
+           "train_acc": res["train_acc"], "eval_acc": res["eval_acc"],
+           "max_memory_allocated_GB": peak_gb,
+           "host_syncs": trainer.host_syncs,
+           "flash_attention_launches": fwd,
+           "flash_attention_bwd_launches": bwd,
+           "forward_launches_per_step": (fwd - 1) / steps,
+           "backward_launches_per_step": bwd / steps,
+           "collect": {k: dense[k] for k in keep}}
+    assert all(math.isfinite(x) for x in losses), "non-finite loss"
+    assert row["loss_last10_mean"] < 0.5 * losses[0], "the loss did not fall"
+    # TTT: two forwards and two backwards a step; one eval forward
+    assert (fwd, bwd) == (2 * steps + 1, 2 * steps), (fwd, bwd, steps)
+    eng = ServingEngine(cfg, params, dcfg, res["dparams"], batch_size=8,
+                        max_len=1024, gamma=GLM["GAMMA"], superstep_rounds=8,
+                        device=dev, extractor=SignalExtractor(SignalStore()))
+    reqs = _serve_requests(cfg.vocab_size)
+    after, _ = _timed_serve(eng, reqs)
+    after = {k: after[k] for k in keep}
+    replay_streams = [list(r.generated) for r in reqs]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    row.update(replay=after,
+               replay_streams_equal=replay_streams == dense_streams,
+               mean_accept_len_before=dense["mean_accept_len"],
+               mean_accept_len_after=after["mean_accept_len"],
+               nvidia_smi=smi())
+    row["step_split"] = _train_step_split(trainer, res["dparams"], batches)
+    emit(row)
+    assert replay_streams == dense_streams, "replay streams != the serve's"
+    del res, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bwd
+
+
+def _train_step_split(trainer, dparams, batches, steps: int = 5) -> dict:
+    """Where a train step's time goes, on fresh trainable copies of
+    ``dparams`` and the first batch: the host clock around the loss
+    forward, ``autograd.grad`` and the optimizer update of each step,
+    each ending in a synchronize (medians of ``steps`` after a warm-up),
+    then ``torch.profiler`` over ``steps`` whole steps (device ms by
+    kernel class, per step).  Runs last in its process: a profiler
+    session makes every later launch dearer (obs/timing.py)."""
+    from torch.profiler import ProfilerActivity, profile
+    (tf, tt), _ = trainer.make_arrays(batches)
+    feats, toks = trainer.device_arrays(tf[:trainer.batch_size],
+                                        tt[:trainer.batch_size])
+    params = trainer.trainable(dparams)
+    state = trainer.opt.init(params)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    split = {"forward": [], "backward": [], "update": []}
+    for it in range(steps + 1):
+        (loss, _), f_ms = timed(lambda: trainer.loss(params, feats, toks,
+                                                     trainer.ttt))
+        grads, b_ms = timed(lambda: torch.autograd.grad(
+            loss, list(params.values())))
+        _, u_ms = timed(lambda: trainer.opt.update(
+            params, dict(zip(params, grads)), state, it))
+        if it:
+            for k, v in zip(split, (f_ms, b_ms, u_ms)):
+                split[k].append(v)
+    out = {f"{k}_ms": statistics.median(v) for k, v in split.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(steps):
+            trainer.step(params, state, feats, toks, steps + 1 + it)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev = _device_classes(prof.key_averages(), per=steps)
+    out.update(profiled_steps=steps, wall_ms_per_step=wall_ms,
+               device_busy_ms_per_step=dev["device_busy_ms"],
+               idle_share=1.0 - dev["device_busy_ms"] / wall_ms,
+               classes_per_step=dev["classes"], top_per_step=dev["top"])
+    return out
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "attn_rows" in n or "mma_rows" in n:
+    if "attn_rows" in n or "mma_rows" in n or "flash_bwd" in n:
         return "attention kernels (port)"
     if "extract_pack" in n:
         return "extract_pack (port)"
@@ -1252,12 +1504,37 @@ def _blocking(name: str) -> bool:
     return "Synchronize" in name or "Pageable" in name
 
 
+def _device_classes(events, per: float = 1.0) -> dict:
+    """A profile's device time from its ``key_averages()``: busy ms, ms
+    and launches by kernel class and the ten heaviest kernels, each
+    divided by ``per``."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        return us / 1e3 / per
+
+    classes = {}
+    for e in kernels:
+        c = classes.setdefault(_kernel_class(e.key), [0.0, 0])
+        c[0] += dev_ms(e)
+        c[1] += e.count / per
+    return {"device_busy_ms": sum(dev_ms(e) for e in kernels),
+            "classes": {k: {"ms": v[0], "launches": v[1]}
+                        for k, v in sorted(classes.items())},
+            "top": [{"kernel": e.key[:90], "ms": dev_ms(e),
+                     "count": e.count / per}
+                    for e in sorted(kernels, key=dev_ms, reverse=True)[:10]]}
+
+
 def phase_profile(eng, which="dense"):
     """Where a serve's time goes: ``torch.profiler`` over a short stream
     on a served engine (8 requests, prompt 256, 17 new tokens: one
     prologue prefill and two supersteps), with the count of host-blocking
     CUDA calls.  Returns that count."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reqs = _requests(np.random.default_rng(6), 8, 256, 256, 17,
                      eng.cfg.vocab_size)
@@ -1270,31 +1547,13 @@ def phase_profile(eng, which="dense"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-
-    def dev_ms(e):
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        return us / 1e3
-
-    busy = sum(dev_ms(e) for e in kernels)
-    classes = {}
-    for e in kernels:
-        c = classes.setdefault(_kernel_class(e.key), [0.0, 0])
-        c[0] += dev_ms(e)
-        c[1] += e.count
-    top = sorted(kernels, key=dev_ms, reverse=True)[:10]
-    blocking = {e.key: e.count for e in events
-                if _blocking(e.key)}
+    dev = _device_classes(events)
+    blocking = {e.key: e.count for e in events if _blocking(e.key)}
     emit({"phase": "profile", "engine": which, "requests": len(reqs),
           "host_syncs": eng.host_syncs - syncs0, "blocking_calls": blocking,
-          "wall_ms": wall_ms,
-          "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-          "classes": {k: {"ms": v[0], "launches": v[1]}
-                      for k, v in sorted(classes.items())},
-          "top": [{"kernel": e.key[:90], "ms": dev_ms(e), "count": e.count}
-                  for e in top]})
+          "wall_ms": wall_ms, "device_busy_ms": dev["device_busy_ms"],
+          "idle_share": 1.0 - dev["device_busy_ms"] / wall_ms,
+          "classes": dev["classes"], "top": dev["top"]})
     return blocking
 
 
@@ -1310,7 +1569,7 @@ def main():
     phase_env()
     rows = phase_kernels_apart()
     phase_ladder()
-    launches, eng, dense, dense_streams = phase_serve()
+    launches, eng, dense, dense_streams, signals = phase_serve()
     phase_cobatch(eng)
     blocking = phase_profile(eng, "dense")
     paged = phase_paged_serve(eng, dense, dense_streams, blocking)
@@ -1324,7 +1583,14 @@ def main():
         blocking)
     launches["verify_attention_paged_tree"] = \
         ptree["verify_attention_paged_tree"]
+    model = (eng.cfg, eng.params, eng.dcfg, eng.dparams)
     del eng, trees
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["flash_attention_bwd"] = phase_train(*model, dense,
+                                                  dense_streams, signals)
+    del model
     for row in rows:
         row["launches"] = launches[row["name"]]
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"

@@ -5,8 +5,10 @@ np.ndarray}`` (``repro/checkpoint/ckpt.py`` ``_flatten``); this module
 turns such a dict into the port's ``ParamTree`` modules and back, for
 the target model (``transformer.param_specs``) and the EAGLE-3 draft
 (``eagle.draft_specs``).  Shapes are checked against the specs on the
-way in.  The port itself never reads JAX objects: callers hand it
-numpy arrays.
+way in.  Optimizer state (``training/optimizer.py``, AdamW and
+Adafactor) and a trainer's flat dict of draft leaves cross the same way,
+under JAX's keys (``m/<leaf>``, ``<leaf>/vr``).  The port itself never
+reads JAX objects: callers hand it numpy arrays.
 """
 from __future__ import annotations
 
@@ -34,16 +36,15 @@ def from_numpy(specs, flat: Dict[str, np.ndarray], *, device,
     return ParamTree(_to_tensors(tree, device, dtype))
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def to_numpy(params: ParamTree) -> Dict[str, np.ndarray]:
     """The inverse: ``{'/'-joined key: np.ndarray}`` on the host (bf16
     leaves are widened to fp32, numpy having no bf16)."""
-    out = {}
-    for key, t in params.flat().items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        out[key] = t.numpy()
-    return out
+    return {key: _host(t) for key, t in params.flat().items()}
 
 
 def target_from_numpy(cfg: ModelConfig, flat, *, device) -> ParamTree:
@@ -56,3 +57,37 @@ def draft_from_numpy(dcfg: ModelConfig, flat, *, device) -> ParamTree:
     from repro_torch.core import eagle
     return from_numpy(eagle.draft_specs(dcfg), flat, device=device,
                       dtype=dcfg.act_dtype)
+
+
+def tree_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of tensors (a flat dict of draft leaves, optimizer
+    state) as ``{'/'-joined key: np.ndarray}``: JAX's ``_flatten`` keys
+    of the same pytree."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: _host(tree)}
+    out = {}
+    for k in sorted(tree):
+        out.update(tree_to_numpy(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def adamw_state_from_numpy(flat, *, device) -> dict:
+    """AdamW state ``{"m": {leaf: t}, "v": {leaf: t}}`` (fp32) from JAX's
+    flattened ``{"m/<leaf>": ..., "v/<leaf>": ...}``."""
+    out = {"m": {}, "v": {}}
+    for key, val in flat.items():
+        head, leaf = key.split("/", 1)
+        out[head][leaf] = torch.tensor(np.asarray(val, np.float32),
+                                       device=device)
+    return out
+
+
+def adafactor_state_from_numpy(flat, *, device) -> dict:
+    """Adafactor state ``{leaf: {"vr", "vc"} or {"v"}}`` (fp32) from
+    JAX's flattened ``{"<leaf>/vr": ...}``."""
+    out: dict = {}
+    for key, val in flat.items():
+        leaf, part = key.rsplit("/", 1)
+        out.setdefault(leaf, {})[part] = torch.tensor(
+            np.asarray(val, np.float32), device=device)
+    return out

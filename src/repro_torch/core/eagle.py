@@ -14,7 +14,8 @@ read and written through its own ``tbl`` copy of the block table.
 (JAX donates the buffers) and return a new dict with the advanced
 lengths.  Refill seeding runs on a dense R-row staging cache, which
 ``scatter_draft_rows_paged`` then writes through the table.  Only greedy
-drafting is ported.
+drafting is ported.  ``draft_train_loss`` is the EAGLE-3 training loss,
+differentiable through the prefill kernel and its backward kernel.
 """
 from __future__ import annotations
 
@@ -97,6 +98,16 @@ def _layer(dcfg: ModelConfig, p, x, k_cache, v_cache, lengths, pad,
     out, _ = attn.self_attention_decode(dcfg, p["attn"], h, k_cache, v_cache,
                                         lengths, pad, page_tbl=page_tbl)
     x = x + out
+    h2 = rmsnorm(p["norm2"], x, dcfg.norm_eps)
+    return x + ffn(p["ffn"], h2)
+
+
+def _layer_full(dcfg: ModelConfig, p, x):
+    """Training form: full causal self-attention over the window, no
+    cache (``attention.self_attention_train``: the prefill kernel, with
+    the backward kernel as its gradient)."""
+    h = rmsnorm(p["norm1"], x, dcfg.norm_eps)
+    x = x + attn.self_attention_train(dcfg, p["attn"], h)
     h2 = rmsnorm(p["norm2"], x, dcfg.norm_eps)
     return x + ffn(p["ffn"], h2)
 
@@ -289,3 +300,53 @@ def scatter_draft_rows_paged(live, new, mask, src):
     for leaf in ("lengths", "pad"):
         scatter_batch_rows(live[leaf], new[leaf], mask, src, axis=0)
     return live
+
+
+# ------------------------------------------------------------- training
+def _masked_ce(logits, labels, m):
+    """Mean over the mask of the cross-entropy of fp32 ``logits``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None])[..., 0]
+    return ((logz - ll) * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def draft_train_loss(dcfg: ModelConfig, dparams, embed_params, feats, tokens,
+                     *, ttt: bool = True, mask=None):
+    """EAGLE-3 training loss on captured signals (JAX
+    ``core/eagle.py:491``).
+
+    Signal convention (SignalStore / draft_extend): pair i is (f_i, u_i),
+    f_i the target capture at a committed position and u_i the token
+    that followed it.  Draft input at i: (f_i, e(u_i)); label u_{i+1}.
+    The TTT term (weight 0.5) replays with the draft's own hidden
+    ``h[:, :-1]`` as the feature, through ``_fuse_inputs``'s d-wide
+    branch, and its gradient flows through ``h``.  feats: (B, S, 3D) in
+    any float dtype (cast to the draft's); tokens: (B, S) ints; mask:
+    optional (B, S).  The target embeddings take no gradient (they are
+    read, never trained).  Returns (loss, {"accuracy": acc}), both
+    0-dim fp32 tensors, the accuracy detached."""
+    dt = dcfg.act_dtype
+    b, s, _ = feats.shape
+    tokens = tokens.long()
+    labels = tokens[:, 1:]
+    x = _fuse_inputs(dcfg, dparams, feats[:, :s - 1],
+                     embed(embed_params, tokens[:, :s - 1], dt))
+    x = _layer_full(dcfg, dparams, x)
+    h = rmsnorm(dparams["final_norm"], x, dcfg.norm_eps)
+    logits = _head(dcfg, dparams, h)
+    m = (torch.ones(labels.shape, dtype=torch.float32, device=feats.device)
+         if mask is None else mask[:, 1:].float())
+    loss = _masked_ce(logits, labels, m)
+    with torch.no_grad():
+        acc = ((logits.argmax(-1) == labels).float() * m).sum() \
+            / torch.clamp(m.sum(), min=1.0)
+    if ttt and s >= 3:
+        # step 2 (TTT): feature = the draft's own hidden at i, token
+        # u_{i+1}, label u_{i+2}: the propose chain's input distribution
+        x2 = _fuse_inputs(dcfg, dparams, h[:, :-1],
+                          embed(embed_params, tokens[:, 1:s - 1], dt))
+        x2 = _layer_full(dcfg, dparams, x2)
+        h2 = rmsnorm(dparams["final_norm"], x2, dcfg.norm_eps)
+        loss = loss + 0.5 * _masked_ce(_head(dcfg, dparams, h2),
+                                       tokens[:, 2:], m[:, 1:])
+    return loss, {"accuracy": acc}

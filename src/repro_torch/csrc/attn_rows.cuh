@@ -140,6 +140,11 @@ struct AttnArgs {
   // tree mode: tree_w branches of depth tree_g, T = tree_w*tree_g + 1
   // (0, 0: the chain)
   int tree_w = 0, tree_g = 0;
+  // (B, T, Hq) float32: each row's log-sum-exp of its scaled scores (-inf
+  // for a row that sees no key), which the training forward hands to the
+  // backward (flash_attn_bwd.cu); nullptr, as every serving launch leaves
+  // it, stores nothing and changes no output bit
+  float* lse = nullptr;
 };
 
 // Logical depth of block slot s of a tree of depth g.
@@ -363,6 +368,10 @@ __global__ void __launch_bounds__(kWarps * 32) attn_rows_kernel(AttnArgs a) {
     T* dst = o + (((size_t)b * a.T + t) * a.Hq + h) * D;
 #pragma unroll
     for (int c = 0; c < C; ++c) dst[lane + 32 * c] = from_f<T>(acc[i][c] * inv);
+    // m is in scaled units here: the row's LSE is m + log(l)
+    if (a.lse != nullptr && lane == 0)
+      a.lse[((size_t)b * a.T + t) * a.Hq + h] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 

@@ -39,10 +39,15 @@
 #include "attn_rows.cuh"
 #include "prefill_rows.cuh"
 
+// lse: (B, S, Hq) float32, each row's log-sum-exp of its scaled scores
+// (the training forward, which the backward reads), or nullptr (serving):
+// the only difference is that store, so the output is the same bit for
+// bit either way.
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
-                                const int* pad, void* out, int B, int S,
-                                int Hq, int Hk, int D, int causal,
-                                int window, int dtype, void* stream) {
+                                const int* pad, void* out, float* lse,
+                                int B, int S, int Hq, int Hk, int D,
+                                int causal, int window, int dtype,
+                                void* stream) {
   repro::AttnArgs a;
   a.q = q;
   a.k = k;
@@ -60,6 +65,7 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
   a.causal = causal;
   a.window = window;
   a.scale = 1.0f / sqrtf((float)D);
+  a.lse = lse;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return repro::launch_mma_rows<false>(a, D, st);
   if (dtype == 0) return repro::launch_attn_rows<false>(a, D, 0, st);

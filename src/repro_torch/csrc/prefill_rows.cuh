@@ -428,6 +428,11 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) 
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
           pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    // m is in unscaled score units here (P = 2^((s - m) * c2)): the row's
+    // LSE of its scaled scores is m * scale + log(l)
+    if (a.lse != nullptr && tig == 0)
+      a.lse[((size_t)b * a.T + t) * a.Hq + h] =
+          lt > 0.f ? m[i] * a.scale + logf(lt) : -INFINITY;
   }
 }
 

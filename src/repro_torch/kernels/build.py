@@ -34,8 +34,10 @@ BUILD_SECONDS: Optional[float] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, pad, out, B, S, Hq, Hk, D, causal, window, dtype, stream
-    "repro_flash_attn": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    # q, k, v, pad, out, lse, B, S, Hq, Hk, D, causal, window, dtype, stream
+    "repro_flash_attn": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, o, do, lse, delta, dq, dk, dv, B, S, Hq, Hk, D, dtype, stream
+    "repro_flash_attn_bwd": [_P] * 10 + [_I] * 6 + [_P],
     # q, k, v, lengths, pad, out, B, T, Smax, Hq, Hk, D, window, tree_w,
     # tree_g, dtype, stream
     "repro_verify_attn": [_P] * 6 + [_I] * 10 + [_P],

@@ -4,10 +4,12 @@ q/k/v and output projections, the KV scatter, and the serving prefill and
 decode attention (chain or draft tree).
 
 Unlike the JAX model, which computes its attention with jnp, the port
-runs both attention calls through its kernels: the left-padded serving
-prefill through ``kernels/flash_attn`` and every decode-side call (target
+runs every attention call through its kernels: the left-padded serving
+prefill through ``kernels/flash_attn``, every decode-side call (target
 verify and plain decode, draft extend and propose) through
-``kernels/verify_attn``.  On CPU tensors those wrappers run their plain
+``kernels/verify_attn``, and the draft's training forward
+(``self_attention_train``) through the prefill kernel with its backward
+kernel as the gradient.  On CPU tensors those wrappers run their plain
 versions, which are ``attend`` under the same masks.
 
 Paged caches (``core/paging``): decode writes the new K/V through the
@@ -189,6 +191,24 @@ def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
                                   causal=True, window=cfg.window,
                                   softcap=cfg.attn_logit_softcap)
     return out_proj(params, o, linear), (k, v)
+
+
+def self_attention_train(cfg: ModelConfig, params, x):
+    """Training form of the prefill attention (the draft layer's
+    ``_layer_full``): causal over positions [0, S), no pad, no cache,
+    products through ``torch.matmul``, and the attention through
+    ``kernels.flash_attn.ops.attention_train``, whose gradient is the
+    backward kernel (a pad, window or softcap raises when a gradient is
+    needed).  Returns (B, S, D)."""
+    from repro_torch.kernels.flash_attn.ops import attention_train
+    b, s, _ = x.shape
+    q, k, v = qkv_proj(params, x)
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention_train(q, k, v, causal=True, window=cfg.window,
+                        softcap=cfg.attn_logit_softcap)
+    return out_proj(params, o)
 
 
 def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,

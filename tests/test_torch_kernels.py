@@ -1016,3 +1016,159 @@ def test_cuda_cobatch_no_op_departs(cuda):
     print(d)
     assert d["first_departing_op"] is None and not d["departing_alone"], d
     assert d["kv_rows_equal"] and d["hidden_equal"] and d["logits_equal"]
+
+
+# ------------------------ the prefill attention's backward kernel (card)
+BWD_SEQ = [(1, 1), (2, 31), (2, 33), (1, 64), (3, 100)]
+
+
+def _bwd_case(b, s, g, d, dtype, dev, seed, hk=2):
+    """q, k, v, dO of a causal GQA training call and the forward's
+    output and LSE from the prefill kernel."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention as fa
+    q = _randn((b, s, hk * g, d), dtype, dev, seed)
+    k = _randn((b, s, hk, d), dtype, dev, seed + 1)
+    v = _randn((b, s, hk, d), dtype, dev, seed + 2)
+    do = _randn((b, s, hk * g, d), dtype, dev, seed + 3)
+    o, lse = fa(q, k, v, return_lse=True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("b,s", BWD_SEQ)
+def test_cuda_flash_bwd_vs_plain(cuda, b, s, g, d, dtype):
+    """flash_attention_bwd against its plain version (float64) on the same
+    inputs, S at 1 and on both sides of the 32-key tile, G 1-16: relative
+    L2 per gradient below 2e-5 (fp32) or 1e-3 (bf16, chip_smoke.py's
+    REL_L2_TOL; both sides rounded once to bf16), bf16 also per element
+    at 2e-2; at S 1 dq and dk are 0 but for rounding on both sides (one
+    key: dS = 0), held below 1e-4; one launch a call."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+    q, k, v, o, do, lse = _bwd_case(b, s, g, d, dtype, cuda, 91)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, lse)
+    for name, x, y in zip("qkv", got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.isfinite(x).all(), f"d{name} non-finite"
+        if name in "qk" and s == 1:   # one key: dS, so dq and dk, are 0
+            assert x.abs().max() < 1e-4 and y.abs().max() < 1e-4
+            continue
+        rel = _rel_l2(x, y)
+        assert rel < (1e-3 if dtype == "bfloat16" else 2e-5), (name, rel)
+        if dtype == "bfloat16":
+            np.testing.assert_allclose(_f32(x.cpu()), _f32(y.cpu()),
+                                       **_tol(dtype), err_msg=f"d{name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,s,g,d", [
+    ("bfloat16", 8, 512, 16, 128), ("bfloat16", 8, 63, 16, 128),
+    ("float32", 2, 100, 4, 64)])
+def test_cuda_flash_bwd_deterministic(cuda, dtype, b, s, g, d):
+    """No atomics: two calls on the same inputs give equal bits."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
+    args = _bwd_case(b, s, g, d, dtype, cuda, 95)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hk,d", [(2, 1, 4, 2, 64), (3, 65, 32, 2, 128),
+                                         (1, 127, 8, 2, 32),
+                                         (8, 512, 32, 2, 128)])
+def test_cuda_flash_lse_forward_equal(cuda, b, s, hq, hk, d, dtype):
+    """The forward that stores the LSE gives, bit for bit, the output of
+    the serving forward (which leaves the pointer null), with a pad too;
+    the LSE equals its plain version at 1e-5 (fp32 statistics of the
+    same inputs)."""
+    from repro_torch.kernels.flash_attn.ref import flash_attention_lse_ref
+    q = _randn((b, s, hq, d), dtype, cuda, 97)
+    k = _randn((b, s, hk, d), dtype, cuda, 98)
+    v = _randn((b, s, hk, d), dtype, cuda, 99)
+    for pad in (None, torch.arange(b, device=cuda, dtype=torch.int32) * 3):
+        n0 = flash_attention.launches
+        out, lse = flash_attention(q, k, v, pad, return_lse=True)
+        plain = flash_attention(q, k, v, pad)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == n0 + 2
+        assert torch.equal(out, plain), "the LSE store changed the output"
+        want = flash_attention_lse_ref(q, k, pad)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(lse), fin)
+        np.testing.assert_allclose(lse[fin].cpu().numpy(),
+                                   want[fin].cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pad", "window", "softcap", "noncausal",
+                                  "head_dim", "lse_dtype"])
+def test_cuda_flash_bwd_refuses(cuda, kind):
+    """What the backward kernel does not take raises on the card: a pad,
+    a window, a softcap, a non-causal mask or a head dim outside
+    HEAD_DIMS (NotImplementedError whenever a gradient is needed), and an
+    LSE that is not float32 (ValueError); no call falls back."""
+    from repro_torch.kernels.flash_attn.ops import (attention_train,
+                                                    flash_attention_bwd)
+    d = 48 if kind == "head_dim" else 64
+    q, k, v = [_randn((2, 16, 4, d), "bfloat16", cuda, 5 + i)
+               .requires_grad_(True) for i in range(3)]
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    if kind == "lse_dtype":
+        with pytest.raises(ValueError):
+            flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                q.detach(), q.detach(),
+                                torch.zeros((2, 16, 4), device=cuda,
+                                            dtype=torch.bfloat16))
+    else:
+        kw = {"pad": dict(pad=torch.tensor([0, 3], device=cuda)),
+              "window": dict(window=4), "softcap": dict(softcap=30.0),
+              "noncausal": dict(causal=False), "head_dim": {}}[kind]
+        with pytest.raises(NotImplementedError):
+            attention_train(q, k, v, **kw)
+    assert n0 == (flash_attention.launches, flash_attention_bwd.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_attention_train_autograd(cuda, dtype):
+    """Autograd through ``attention_train`` on the card: one forward
+    launch (with the LSE) and one backward launch, the gradients those
+    of the plain backward on the kernel's own output, relative L2 as in
+    test_cuda_flash_bwd_vs_plain; the TTT pattern (a second call on an
+    input that itself needs a gradient) accumulates both."""
+    from repro_torch.kernels.flash_attn.ops import (attention_train,
+                                                    flash_attention_bwd)
+    from repro_torch.kernels.flash_attn.ref import flash_attention_bwd_ref
+    q, k, v, _, do, _ = _bwd_case(2, 45, 4, 64, dtype, cuda, 31)
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    out = attention_train(q, k, v)
+    out2 = attention_train(out * 0.5, k, v)
+    (out2.float() * do.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n0[0],
+            flash_attention_bwd.launches - n0[1]) == (2, 2)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    q2, k2, v2 = (t.detach() for t in (q, k, v))
+    o1, lse1 = flash_attention(q2, k2, v2, return_lse=True)
+    q3 = (o1 * 0.5).contiguous()
+    o2, lse2 = flash_attention(q3, k2, v2, return_lse=True)
+    g3, gk2, gv2 = flash_attention_bwd_ref(q3, k2, v2, o2, do, lse2)
+    gq1, gk1, gv1 = flash_attention_bwd_ref(q2, k2, v2, o1,
+                                            (g3.float() * 0.5).to(q2.dtype),
+                                            lse1)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert _rel_l2(q.grad, gq1) < tol
+    assert _rel_l2(k.grad, gk1.float() + gk2.float()) < tol
+    assert _rel_l2(v.grad, gv1.float() + gv2.float()) < tol
