@@ -507,6 +507,7 @@ def phase_kernels():
     # every device time after every event and host time (obs/timing.py)
     from repro_torch.obs.timing import device_ms, resolve
     rows = resolve(rows)
+    _bwd_blocks(next(r for r in rows if r["name"] == "flash_attention_bwd"))
     for row in rows:
         kinds = SHIFT_KINDS_OF[row["name"]]
         row["pad_shift_equal"] = _pad_shift_equal(kinds) if kinds else None
@@ -637,14 +638,21 @@ def _sdpa_bwd(q, k, v, do):
 def _flash_bwd_row(g):
     """flash_attention_bwd at the glm4-9b draft's training shape (batch 8,
     32/2 heads, D 128, bf16) at S 62 (the train phase's) and 512: each
-    gradient held against its plain version, two calls equal, the
-    LSE-storing forward equal to the serving forward, timed against the
-    autograd backward of SDPA.  The row's numbers are S 62's."""
-    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+    gradient held against its plain version, two calls equal, a lane's
+    gradients equal alone and as lanes 0 and 5 of the batch, the
+    LSE-storing forward equal to the serving forward; the error of a
+    one-bf16 P and dS emulation beside the kernel's; timed, and each of
+    its three passes (dQ with delta, dK/dV, the reduce of the splits) on
+    the device clock, against the autograd backward of SDPA on both
+    clocks; the dK/dV launch's grid read from the profiler's trace
+    (``_bwd_blocks`` holds it to the schedule).  The row's numbers are
+    S 62's."""
+    from repro_torch.kernels.flash_attn.ops import (bwd_schedule, bwd_tile,
+                                                    flash_attention,
                                                     flash_attention_bwd)
     from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                     flash_attention_lse_ref)
-    from repro_torch.obs.timing import Deferred
+    from repro_torch.obs.timing import Deferred, launch_grids
     dev = torch.device("cuda")
     B, HQ, HK, D = (GLM[k] for k in ("B", "HQ", "HK", "D"))
     cases = []
@@ -657,10 +665,17 @@ def _flash_bwd_row(g):
         served = flash_attention(q, k, v)
         first = flash_attention_bwd(q, k, v, o, do, lse)
         again = flash_attention_bwd(q, k, v, o, do, lse)
+        alone = {lane: flash_attention_bwd(
+            *(t[lane:lane + 1].contiguous() for t in (q, k, v, o, do, lse)))
+            for lane in (0, 5)}
         torch.cuda.synchronize()
         assert torch.equal(o, served), "the LSE store changed the forward"
         assert all(torch.equal(a, b) for a, b in zip(first, again)), \
             "flash_attention_bwd differs between two calls"
+        for lane, grads in alone.items():
+            assert all(torch.equal(a[0], b[lane])
+                       for a, b in zip(grads, first)), \
+                f"flash_attention_bwd: lane {lane} alone != in the batch"
         lse_err = float((lse - flash_attention_lse_ref(q, k)).abs().max())
         assert lse_err < 1e-4, f"LSE error {lse_err}"
         want = flash_attention_bwd_ref(q, k, v, o, do, lse)
@@ -676,18 +691,30 @@ def _flash_bwd_row(g):
         # the score recompute and the four products dV, dP, dQ, dK
         b_ms, b_by = bound(nbytes, 5 * 2.0 * vis * D)
         call = partial(flash_attention_bwd, q, k, v, o, do, lse)
+        sdpa = _sdpa_bwd(q, k, v, do)
         cases.append(dict(
             S=s, lse_forward_equal=True, equal_twice=True,
+            lane_equal_alone=[0, 5],
+            dkdv_blocks_scheduled=len(bwd_schedule(
+                s, HQ // HK, **bwd_tile())[0]) * HK * B,
+            # the dK/dV launch's grid as the profiler's trace records it
+            dkdv_grid=Deferred(call, ("flash_bwd_dkdv",), 1,
+                               read=launch_grids),
             lse_max_abs_err=lse_err,
             max_abs_err=max(e[0] for e in errs.values()),
             rel_l2_err={n: e[1] for n, e in errs.items()},
+            pbf16_dsbf16_rel_l2_emulated=_bwd_bf16_rel_l2(
+                q, k, v, o, do, lse, want),
             **kernel_ms(call),
             device_ms_passes={p: Deferred(call, (f"flash_bwd_{p}",), 20)
-                              for p in ("delta", "dkdv", "dq")},
+                              for p in ("dq", "dkdv", "reduce")},
             plain_ms=cuda_ms(lambda: flash_attention_bwd_ref(
                 q, k, v, o, do, lse), iters=5),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=cuda_ms(_sdpa_bwd(q, k, v, do))))
+            library_ms=cuda_ms(sdpa),
+            # every kernel the library call launches
+            library_device_ms=Deferred(sdpa, ("",), 20)))
+        del first, again, alone, want
     head = cases[0]
     return dict(
         name="flash_attention_bwd", route="cuda",
@@ -695,14 +722,64 @@ def _flash_bwd_row(g):
         replaces="none: no Pallas kernel has a backward (JAX differentiates "
                  "the jnp attention of src/repro/core/eagle.py:100 "
                  "_layer_full)",
-        path="fma_fp32_two_pass",
+        path="mma_bf16_split_rows",
         max_abs_err=max(c["max_abs_err"] for c in cases),
         **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")},
+                                "bound_ms", "bound_by", "library_ms",
+                                "library_device_ms")},
         library="autograd backward of scaled_dot_product_attention("
                 "is_causal=True, enable_gqa=True)",
         shape=f"q {(B, head['S'], HQ, D)} kv {(B, head['S'], HK, D)} bf16, "
               "causal, no pad", cases=cases)
+
+
+def _bwd_blocks(row):
+    """After ``resolve``: each case's dK/dV blocks from the grid of its one
+    dK/dV launch a call, equal to the schedule's count, and at least one
+    wave of the card (128 of 132 SMs) at the train phase's S."""
+    for case in row["cases"]:
+        grids = case["dkdv_grid"]
+        assert len(grids) == 1, f"dK/dV launches a call: {grids}"
+        x, y, z = grids[0]
+        case["dkdv_blocks"] = x * y * z
+        assert case["dkdv_blocks"] == case["dkdv_blocks_scheduled"], case
+    row["dkdv_blocks"] = row["cases"][0]["dkdv_blocks"]
+    assert row["dkdv_blocks"] >= 128, row["dkdv_blocks"]
+
+
+def _bwd_bf16_rel_l2(q, k, v, o, do, lse, want) -> dict:
+    """Relative L2 error per gradient, against the plain version
+    (``want``), of the same backward with P and dS each rounded to one
+    bf16 before the products that take them (dV = P^T.dO, dK = dS^T.Q,
+    dQ = dS.K), float64 otherwise: what the tensor-core products would
+    read without the hi/lo pairs the kernel feeds them."""
+    import math
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    qr = q.double().reshape(b, s, hk, g, d)
+    dor = do.double().reshape(b, s, hk, g, d)
+    kd, vd = k.double(), v.double()
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    lse_r = lse.double().reshape(b, s, hk, g).permute(0, 2, 3, 1)[..., None]
+    p = torch.exp(torch.einsum("btkgd,bskd->bkgts", qr, kd) * scale - lse_r)
+    p = p.masked_fill(~causal, 0.0)
+    delta = (do.double() * o.double()).sum(-1).reshape(b, s, hk, g)
+    ds = p * (torch.einsum("btkgd,bskd->bkgts", dor, vd)
+              - delta.permute(0, 2, 3, 1)[..., None])
+    p1 = p.to(torch.bfloat16).double()
+    ds1 = ds.to(torch.bfloat16).double()
+    del p, ds
+    got = (torch.einsum("bkgts,bskd->btkgd", ds1, kd).reshape(b, s, hq, d)
+           * scale,
+           torch.einsum("bkgts,btkgd->bskd", ds1, qr) * scale,
+           torch.einsum("bkgts,btkgd->bskd", p1, dor))
+    out = {}
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        x, y = x.to(torch.bfloat16).float(), y.float()
+        out[name] = float((x - y).norm() / y.norm())
+    return out
 
 
 def _pad_shift_equal(kinds) -> bool:

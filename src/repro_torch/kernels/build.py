@@ -36,8 +36,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, pad, out, lse, B, S, Hq, Hk, D, causal, window, dtype, stream
     "repro_flash_attn": [_P] * 6 + [_I] * 8 + [_P],
-    # q, k, v, o, do, lse, delta, dq, dk, dv, B, S, Hq, Hk, D, dtype, stream
-    "repro_flash_attn_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    # q, k, v, o, do, lse, delta, dq, dk, dv, split, ktile, ws, B, S, Hq,
+    # Hk, D, n_split, dtype, stream
+    "repro_flash_attn_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    # out[2]: the bf16 backward's row and key tiles
+    "repro_flash_attn_bwd_tile": [_P],
     # q, k, v, lengths, pad, out, B, T, Smax, Hq, Hk, D, window, tree_w,
     # tree_g, dtype, stream
     "repro_verify_attn": [_P] * 6 + [_I] * 10 + [_P],

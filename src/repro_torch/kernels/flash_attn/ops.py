@@ -5,6 +5,9 @@ kernel ``csrc/flash_attn_bwd.cu``, which no Pallas kernel has: JAX
 differentiates its jnp attention)."""
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.kernels import (HEAD_DIMS, check_pools, dtype_code,
@@ -134,6 +137,64 @@ def _bwd_refusal(q, k, pad=None, causal=True, window=0, softcap=0.0):
     return None
 
 
+# The splits of key tile 0, which every row sees, in the bf16 backward's
+# dK/dV pass
+BWD_SPLITS = 8
+
+
+@functools.cache
+def bwd_tile() -> dict:
+    """The built bf16 backward's tiles: ``rows`` per row tile and ``keys``
+    per key tile (csrc/flash_attn_bwd.cu kTbRows, kTbKeys; the card's
+    library, built on first call)."""
+    from repro_torch.kernels.build import check, library
+    out = (ctypes.c_int * 2)()
+    check(library().repro_flash_attn_bwd_tile(out), "flash_attention_bwd tile")
+    return dict(zip(("rows", "keys"), out))
+
+
+def bwd_schedule(s: int, g: int, rows: int, keys: int):
+    """The dK/dV work split of the bf16 backward kernel, a function of the
+    sequence length ``s``, the query heads per kv head ``g`` and the
+    kernel's tiles (``bwd_tile``) alone: never of the batch, never of the
+    data, so a lane's gradients are the same bits alone and in a batch.
+
+    Rows are (position, query head) pairs, t-major, in row tiles of
+    ``rows``; keys are in tiles of ``keys`` from key 0.  Key tile j is
+    seen by the row tiles from the one holding its first key's position
+    on; they are cut into splits of ``per`` row tiles each, counted from
+    that first row tile, ``per`` chosen so that key tile 0 has
+    ``BWD_SPLITS`` splits (fewer when it has fewer row tiles).  Returns
+    ``(splits, tiles)``: ``splits`` a list of (key tile, first row tile,
+    end row tile, splits of that key tile), key tiles in ascending order
+    and each one's splits in ascending row order (the order the kernel's
+    reduce adds them in); ``tiles`` a list of (index of the key tile's
+    first split, its split count), one per key tile."""
+    n_rt = -(-s * g // rows)
+    per = -(-n_rt // BWD_SPLITS)
+    splits, tiles = [], []
+    for j in range(-(-s // keys)):
+        lo = j * keys * g // rows
+        n = -(-(n_rt - lo) // per)
+        tiles.append((len(splits), n))
+        splits += [(j, lo + i * per, min(lo + (i + 1) * per, n_rt), n)
+                   for i in range(n)]
+    return splits, tiles
+
+
+@functools.lru_cache(maxsize=32)
+def _bwd_tables(s: int, g: int, device: torch.device):
+    """``bwd_schedule`` of (s, g) at the built kernel's tiles as int32
+    tables on ``device`` (made once per shape, so a train step copies
+    nothing to the card), and the keys per key tile when a key tile has
+    several splits (then the kernel needs the scratch), else 0."""
+    tile = bwd_tile()
+    splits, tiles = bwd_schedule(s, g, tile["rows"], tile["keys"])
+    return (torch.tensor(splits, dtype=torch.int32, device=device),
+            torch.tensor(tiles, dtype=torch.int32, device=device),
+            tile["keys"] if any(n > 1 for _, n in tiles) else 0)
+
+
 def flash_attention_bwd(q, k, v, o, do, lse):
     """Gradient of causal GQA prefill attention (no pad, no window, no
     softcap).  q, o, do: (B, S, Hq, D); k, v: (B, S, Hk, D); lse: (B, S,
@@ -141,9 +202,12 @@ def flash_attention_bwd(q, k, v, o, do, lse):
     the dtypes and shapes of (q, k, v).
 
     CPU tensors take ``flash_attention_bwd_ref``; CUDA tensors launch
-    ``csrc/flash_attn_bwd.cu`` (delta, then dK/dV per key tile, then dQ
-    per row tile: no atomics, so two calls give equal results) or raise.
-    ``flash_attention_bwd.launches`` counts the wrapper's launches."""
+    ``csrc/flash_attn_bwd.cu`` or raise.  bfloat16 runs on tensor cores:
+    dQ per row tile (with delta), then dK/dV per split of a key tile's
+    rows (``bwd_schedule``), then the splits' partial sums added in
+    order; float32 on the FMA loop.  No atomics, so two calls give equal
+    results.  ``flash_attention_bwd.launches`` counts the wrapper's
+    launches."""
     why = _bwd_refusal(q, k)
     if why:
         raise NotImplementedError(f"the attention backward kernel has no "
@@ -168,12 +232,22 @@ def flash_attention_bwd(q, k, v, o, do, lse):
     code = dtype_code(q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
+    split = ktile = ws = None
+    n_split = 0
+    if q.dtype == torch.bfloat16:
+        split, ktile, ws_keys = _bwd_tables(s, hq // hk, q.device)
+        n_split = split.shape[0]
+        if ws_keys:
+            ws = torch.empty((b, hk, n_split, 2, ws_keys, d),
+                             dtype=torch.float32, device=q.device)
     from repro_torch.kernels.build import check, library
     with torch.cuda.device(q.device):
         err = library().repro_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, s, hq, hk, d, code, stream_of(q))
+            dk.data_ptr(), dv.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (split, ktile, ws)),
+            b, s, hq, hk, d, n_split, code, stream_of(q))
     check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -99,11 +99,49 @@ def device_ms(fn, match, iters: int = 20) -> float:
 device_ms.retries = 0
 
 
-class Deferred:
-    """A ``device_ms`` of ``fn`` still to be read by ``resolve``."""
+def launch_grids(fn, match, iters: int = 1) -> list:
+    """The grid ``[x, y, z]`` of every launch of a CUDA kernel whose name
+    holds one of the strings of ``match`` in ``iters`` calls of ``fn``, in
+    launch order, as ``torch.profiler``'s trace records it (the grid the
+    card ran, not the one the caller meant).  A session that sees none
+    is read again, as ``device_ms`` does; raises when none sees them."""
+    import os
+    import tempfile
 
-    def __init__(self, fn, match, iters: int):
-        self.fn, self.match, self.iters = fn, match, iters
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            device_ms.retries += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        grids = [e["args"]["grid"] for e in events
+                 if e.get("cat") == "kernel"
+                 and any(m in e.get("name", "") for m in match)]
+        if grids:
+            return grids
+    raise RuntimeError(f"the profiler's trace holds no launch of kernels "
+                       f"matching {match} in {iters} calls, "
+                       f"{PROFILE_ATTEMPTS} times")
+
+
+class Deferred:
+    """A profiler reading of ``fn`` still to be taken by ``resolve``: its
+    ``device_ms`` or, with ``read=launch_grids``, its launches' grids."""
+
+    def __init__(self, fn, match, iters: int, read=None):
+        self.fn, self.match, self.iters, self.read = fn, match, iters, read
 
 
 def split_ms(fn, match, iters: int = 20) -> dict:
@@ -115,11 +153,12 @@ def split_ms(fn, match, iters: int = 20) -> dict:
 
 def resolve(obj, _read=None):
     """``obj`` with every ``Deferred`` in its dicts and lists replaced by
-    its device ms, each read once."""
+    its reading, each taken once."""
     read = {} if _read is None else _read
     if isinstance(obj, Deferred):
         if id(obj) not in read:
-            read[id(obj)] = device_ms(obj.fn, obj.match, obj.iters)
+            read[id(obj)] = (obj.read or device_ms)(obj.fn, obj.match,
+                                                    obj.iters)
         return read[id(obj)]
     if isinstance(obj, dict):
         return {k: resolve(v, read) for k, v in obj.items()}

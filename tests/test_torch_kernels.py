@@ -374,6 +374,18 @@ def test_timing_resolve_reads_each_deferred_once(monkeypatch):
     assert sorted(reads) == [("a",), ("b",)]
 
 
+def test_timing_resolve_takes_each_deferreds_reader(monkeypatch):
+    """A Deferred made with ``read=`` (``launch_grids``) is resolved by
+    that reader, the others by ``device_ms``."""
+    from repro_torch.obs import timing
+    monkeypatch.setattr(timing, "device_ms", lambda fn, match, iters: 1.0)
+    grids = timing.Deferred(lambda: None, ("k",), 1,
+                            read=lambda fn, match, iters: [[8, 2, 8]])
+    ms = timing.Deferred(lambda: None, ("k",), 20)
+    assert timing.resolve({"grid": grids, "ms": ms}) == {
+        "grid": [[8, 2, 8]], "ms": 1.0}
+
+
 def test_linear_rows_plain_on_cpu():
     """On CPU tensors ``linear_rows`` is ``x @ w`` bit for bit (the CPU
     prefill keeps its products) and counts no launch; its split over K
@@ -435,6 +447,79 @@ def test_linear_rows_k_splits_contract(k, n):
     assert bounds[0] == 0 and bounds[-1] == chunks
     if s > 1:
         assert min(b - a for a, b in zip(bounds, bounds[1:])) >= 8
+
+
+# (S, G) of the bf16 backward's schedule sweep: both sides of the 64-key
+# and 64-row tile edges, where the rows per split step (S 128 -> 129 at
+# G 16, 64 -> 65 at G 1), the draft's training shape (62, 16) and S 512
+BWD_SCHEDULE_SG = [(s, g) for g in (1, 2, 4, 16)
+                   for s in (1, 2, 15, 16, 17, 31, 33, 62, 63, 64, 65, 100,
+                             127, 128, 129, 255, 256, 257, 300, 512, 1000)]
+# (rows, keys) tiles: the kernel's (csrc/flash_attn_bwd.cu kTbRows,
+# kTbKeys, which repro_flash_attn_bwd_tile reports on the card) and two
+# others, so the schedule holds for whatever tiles the kernel is built at
+BWD_TILES = [(64, 64), (128, 64), (64, 32)]
+
+
+def _bwd_causal_pairs(s, g, rows, keys):
+    """(row tile, key tile) pairs where some row of the row tile sees some
+    key of the key tile, causally: the row tile's last position is at or
+    after the key tile's first key."""
+    n_rt = -(-s * g // rows)
+    return {(rt, j) for rt in range(n_rt) for j in range(-(-s // keys))
+            if (min(rt * rows + rows, s * g) - 1) // g >= j * keys}
+
+
+@pytest.mark.parametrize("rows,keys", BWD_TILES)
+@pytest.mark.parametrize("s,g", BWD_SCHEDULE_SG)
+def test_bwd_schedule_covers_each_causal_pair_once(s, g, rows, keys):
+    """Every causal (row tile, key tile) pair lands in exactly one split of
+    its key tile, and no split holds a row tile that sees none of its
+    key tile's keys."""
+    from repro_torch.kernels.flash_attn.ops import bwd_schedule
+    splits, _ = bwd_schedule(s, g, rows, keys)
+    seen = [(rt, j) for j, lo, hi, _ in splits for rt in range(lo, hi)]
+    assert len(seen) == len(set(seen))
+    assert set(seen) == _bwd_causal_pairs(s, g, rows, keys)
+
+
+@pytest.mark.parametrize("rows,keys", BWD_TILES)
+@pytest.mark.parametrize("s,g", BWD_SCHEDULE_SG)
+def test_bwd_schedule_order(s, g, rows, keys):
+    """Key tiles in ascending order, each one's splits contiguous in the
+    table and in ascending row order, back to back, all of one length
+    but each key tile's last, which is no longer;
+    ``tiles`` names each key tile's first split and count, and every
+    split carries its key tile's count."""
+    from repro_torch.kernels.flash_attn.ops import bwd_schedule
+    splits, tiles = bwd_schedule(s, g, rows, keys)
+    assert len(tiles) == -(-s // keys)
+    assert [sp[0] for sp in splits] == sorted(sp[0] for sp in splits)
+    per = splits[0][2] - splits[0][1]
+    for j, (first, n) in enumerate(tiles):
+        mine = splits[first:first + n]
+        assert n >= 1 and [sp[0] for sp in mine] == [j] * n
+        assert all(sp[3] == n for sp in mine)
+        assert all(a[2] == b[1] for a, b in zip(mine, mine[1:]))
+        assert all(sp[2] - sp[1] == per for sp in mine[:-1])
+        assert 0 < mine[-1][2] - mine[-1][1] <= per
+    assert sum(n for _, n in tiles) == len(splits)
+
+
+def test_bwd_schedule_takes_no_batch():
+    """The split schedule is a function of (S, G) and the kernel's tiles
+    alone: no batch, no data, so a lane's split is the same alone and in
+    any batch; at the draft's training shape (S 62, G 16) and 64-row,
+    64-key tiles it gives the dK/dV pass 8 splits, 128 blocks at batch 8
+    and 2 kv heads; at S 512 key tile 0 also has 8."""
+    import inspect
+
+    from repro_torch.kernels.flash_attn.ops import BWD_SPLITS, bwd_schedule
+    assert list(inspect.signature(bwd_schedule).parameters) == [
+        "s", "g", "rows", "keys"]
+    splits, tiles = bwd_schedule(62, 16, 64, 64)
+    assert len(splits) * 2 * 8 == 128 and tiles == [(0, BWD_SPLITS)]
+    assert bwd_schedule(512, 16, 64, 64)[1][0] == (0, BWD_SPLITS)
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -1019,7 +1104,10 @@ def test_cuda_cobatch_no_op_departs(cuda):
 
 
 # ------------------------ the prefill attention's backward kernel (card)
-BWD_SEQ = [(1, 1), (2, 31), (2, 33), (1, 64), (3, 100)]
+# S on both sides of the 64-key and 64-row tiles and where the split
+# count steps (G 16: S 128 -> 129; G 1: 64 -> 65), the train phase's 62
+BWD_SEQ = [(1, 1), (2, 31), (2, 33), (2, 62), (1, 63), (1, 64), (2, 65),
+           (3, 100), (1, 127), (2, 128), (1, 129), (1, 300)]
 
 
 def _bwd_case(b, s, g, d, dtype, dev, seed, hk=2):
@@ -1070,7 +1158,8 @@ def test_cuda_flash_bwd_vs_plain(cuda, b, s, g, d, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,b,s,g,d", [
     ("bfloat16", 8, 512, 16, 128), ("bfloat16", 8, 63, 16, 128),
-    ("float32", 2, 100, 4, 64)])
+    ("float32", 2, 100, 4, 64), ("bfloat16", 8, 62, 16, 128),
+    ("bfloat16", 2, 129, 16, 64), ("bfloat16", 3, 65, 1, 32)])
 def test_cuda_flash_bwd_deterministic(cuda, dtype, b, s, g, d):
     """No atomics: two calls on the same inputs give equal bits."""
     from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
@@ -1079,6 +1168,25 @@ def test_cuda_flash_bwd_deterministic(cuda, dtype, b, s, g, d):
     second = flash_attention_bwd(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,g,d", [(62, 16, 128), (512, 16, 128),
+                                   (129, 4, 64), (65, 1, 32)])
+def test_cuda_flash_bwd_lane_invariant(cuda, s, g, d, dtype):
+    """A lane's dq, dk, dv are the same bits when it is the whole batch
+    and when it is lane 0 or lane 5 of a batch of 8: no sum's order, and
+    no split of the dK/dV pass, depends on the batch."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
+    args = _bwd_case(8, s, g, d, dtype, cuda, 77)
+    batch = flash_attention_bwd(*args)
+    for lane in (0, 5):
+        alone = flash_attention_bwd(*(t[lane:lane + 1].contiguous()
+                                      for t in args))
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dq", "dk", "dv"), alone, batch):
+            assert torch.equal(x[0], y[lane]), (name, lane)
 
 
 @pytest.mark.gpu
@@ -1137,6 +1245,39 @@ def test_cuda_flash_bwd_refuses(cuda, kind):
         with pytest.raises(NotImplementedError):
             attention_train(q, k, v, **kw)
     assert n0 == (flash_attention.launches, flash_attention_bwd.launches)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_bwd_refuses_missing_scratch(cuda):
+    """The C entry itself refuses a bf16 split table with a key tile of
+    several splits and no scratch for their partial sums, or with fewer
+    splits than key tiles (cudaErrorInvalidValue), and launches nothing;
+    the same table with the scratch runs."""
+    from repro_torch.kernels import stream_of
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.flash_attn.ops import _bwd_tables
+    b, s, g, d = 2, 62, 16, 64
+    q, k, v, o, do, lse = _bwd_case(b, s, g, d, "bfloat16", cuda, 3)
+    split, ktile, ws_keys = _bwd_tables(s, g, q.device)
+    assert ws_keys and split.shape[0] > ktile.shape[0]
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=cuda)
+    out = [torch.zeros_like(t) for t in (q, k, v)]
+    ws = torch.empty((b, 2, split.shape[0], 2, ws_keys, d),
+                     dtype=torch.float32, device=cuda)
+
+    def call(ws_ptr, n_split):
+        return library().repro_flash_attn_bwd(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, *out)),
+            split.data_ptr(), ktile.data_ptr(), ws_ptr, b, s, 2 * g, 2, d,
+            n_split, 1, stream_of(q))
+
+    assert call(None, split.shape[0]) == 1      # cudaErrorInvalidValue
+    assert call(ws.data_ptr(), 0) == 1
+    torch.cuda.synchronize()
+    assert all(not t.any() for t in out), "a refused call wrote"
+    assert call(ws.data_ptr(), split.shape[0]) == 0
+    torch.cuda.synchronize()
+    assert all(t.any() for t in out)
 
 
 @pytest.mark.gpu
