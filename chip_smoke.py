@@ -124,6 +124,22 @@ Phases, one JSON line each:
            that differs.  Every earlier engine is freed first; a
            step split (forward, backward, update) and a short profile
            of five steps come last.
+  tide     the synchronous adaptation loop (TideSystem, async_train
+           False) on the serve's weights and untrained draft: batch 8,
+           max_len 1024, gamma 3, K 8, signal_window 63, n_threshold 8
+           windows, TIDE_STEPS steps a cycle.  Stream 1 serves the 16
+           requests, training at request-completion boundaries (the
+           first cycle runs once 8 windows are in, and a draft the gate
+           accepts serves from the next dispatch); stream 2 serves fresh
+           requests of the same prompts.  Reports each cycle (eval and
+           train accuracy, baseline, deployed, steps, seconds, engine
+           round, prefill and backward launches), the round and
+           superstep of each deploy, the mean accepted length of stream
+           1 before and after its first deploy and of stream 2, every
+           kernel's launches over the phase, peak memory.  Asserts both
+           streams equal the serve's, the gate deployed inside stream 1,
+           stream 2's mean accepted length is above 1.0, and each cycle
+           launched the attention backward twice a step.
   profile  torch.profiler over a short serve on the dense engine right
            after its serve, then on the half-pool paged engine, each
            tree engine and the W = 4 paged tree engine, each right after
@@ -167,6 +183,10 @@ GLM = dict(B=8, S=512, SMAX=1024, HQ=32, HK=2, D=128, F=3 * 4096, GAMMA=3,
 # windows, ~107 epochs, enough for the loss to flatten (training until
 # saturation, paper Fig. 5)
 TRAIN_STEPS = 200
+# the tide phase's steps a cycle: its batch holds all 7 train windows, so
+# each window is seen 100 times (the train phase's ~107); at 200 the run
+# passed half its time limit
+TIDE_STEPS = TRAIN_STEPS // 2
 
 
 T_START = time.perf_counter()
@@ -1512,6 +1532,118 @@ def phase_train(cfg, params, dcfg, dparams, dense, dense_streams, batches):
     return bwd
 
 
+def _mean_accept(timeline) -> float:
+    return statistics.mean(r["accept_len"] for r in timeline) \
+        if timeline else float("nan")
+
+
+def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
+    """The synchronous adaptation loop on the card: ``TideSystem`` in sync
+    mode on the serve phase's weights and untrained draft serves the 16
+    requests as a stream, training at request-completion boundaries
+    (the first cycle after the 8th window, deployed at the next
+    dispatch), then a second stream of the same prompts with the
+    deployed draft.  Both streams must equal the serve's, the gate must
+    have deployed, the second stream's mean accepted length must be
+    above 1.0, and every cycle must launch the attention backward twice
+    a step.  Acceptance inside the first stream is reported only."""
+    import gc
+
+    from repro_torch.core.tide import TideConfig, TideSystem
+    from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
+    tc = TideConfig(gamma=GLM["GAMMA"], batch_size=8, max_len=1024,
+                    superstep_rounds=8, adaptive_spec=False,
+                    signal_window=GLM["TRAIN_WINDOW"], n_threshold=8,
+                    train_epochs=2, train_min_steps=TIDE_STEPS, seed=0)
+    system = TideSystem(cfg, params, tc, dparams=dparams, device="cuda")
+    eng = system.engine
+    fns = dict(_kernel_fns(), flash_attention_bwd=flash_attention_bwd)
+    deploys, cycles = [], []
+    poll_deploy, train_cycle = eng._poll_deploy, system.trainer.train_cycle
+
+    def polled(source=None):
+        ver = poll_deploy(source)
+        if ver is not None:
+            deploys.append({"seq": ver.seq, "round": eng.stats.steps,
+                            "superstep": eng.stats.dispatches})
+        return ver
+
+    def counted(*a, **kw):
+        fwd, bwd = fns["flash_attention"].launches, flash_attention_bwd.launches
+        res = train_cycle(*a, **kw)
+        cycles.append({"flash_attention": fns["flash_attention"].launches
+                       - fwd, "flash_attention_bwd":
+                       flash_attention_bwd.launches - bwd})
+        return res
+
+    eng._poll_deploy, system.trainer.train_cycle = polled, counted
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "tree_launches"):
+            fn.tree_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streams, walls, marks = [], [], []
+    for _ in range(2):
+        reqs = _serve_requests(cfg.vocab_size)
+        marks.append(len(eng.stats.timeline))
+        t0 = time.perf_counter()
+        system.run_stream(iter(reqs))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert all(r.finish_t is not None and len(r.generated) == 64
+                   for r in reqs), "a request did not finish"
+        streams.append([list(r.generated) for r in reqs])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in fns.items()}
+    timeline = list(eng.stats.timeline)
+    assert len(timeline) == eng.stats.steps, "the timeline ring dropped"
+    one, two = timeline[:marks[1]], timeline[marks[1]:]
+    first = deploys[0]["round"] if deploys else len(one)
+    events = [{k: e[k] for k in ("eval_acc", "train_acc", "baseline",
+                                 "deployed", "steps", "seconds",
+                                 "engine_steps")} | cyc
+              for e, cyc in zip(system.events, cycles)]
+    row = {"phase": "tide", "model": cfg.name, "requests": 16,
+           "config": {k: getattr(tc, k) for k in (
+               "batch_size", "max_len", "gamma", "superstep_rounds",
+               "signal_window", "n_threshold", "train_epochs",
+               "train_min_steps", "selective_training", "adaptive_spec")},
+           "cycles": len(events), "events": events, "deploys": deploys,
+           "gate_version": system.gate.version,
+           "stream_wall_s": walls,
+           "stream1_rounds": len(one), "stream2_rounds": len(two),
+           "stream1_accept_before_first_deploy": _mean_accept(one[:first]),
+           "stream1_accept_after_first_deploy": _mean_accept(one[first:]),
+           "stream2_mean_accept_len": _mean_accept(two),
+           "streams_equal_serve": [s == dense_streams for s in streams],
+           "serve_mean_accept_len": dense["mean_accept_len"],
+           "summary": system.summary(), "launches": launches,
+           "trainer_failures": system.service.failures,
+           "trainer_last_error": system.service.last_error,
+           "max_memory_allocated_GB": peak_gb, "nvidia_smi": smi()}
+    emit(row)
+    ran = (system.service.cycles, len(system.events), len(cycles))
+    system.close()
+    del system, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # drain() turns a cycle that raises into a count and goes on serving:
+    # here any such cycle, or one that ran and left no event, is a fault
+    assert row["trainer_failures"] == 0, \
+        f"a train cycle failed: {row['trainer_last_error']}"
+    assert ran[0] == ran[1] == ran[2] == row["summary"]["train_cycles"], \
+        f"cycles run/recorded/trained differ: {ran}"
+    assert streams[0] == dense_streams, "stream 1 != the serve's streams"
+    assert streams[1] == dense_streams, "stream 2 != the serve's streams"
+    assert events and row["gate_version"] >= 1, "the gate never deployed"
+    assert deploys and deploys[0]["round"] < len(one), \
+        "no deploy inside the first stream"
+    assert all(e["flash_attention_bwd"] == 2 * e["steps"] for e in events), \
+        events
+    assert row["stream2_mean_accept_len"] > 1.0, row["stream2_mean_accept_len"]
+
+
 def _train_step_split(trainer, dparams, batches, steps: int = 5) -> dict:
     """Where a train step's time goes, on fresh trainable copies of
     ``dparams`` and the first batch: the host clock around the loss
@@ -1667,6 +1799,7 @@ def main():
     torch.cuda.empty_cache()
     launches["flash_attention_bwd"] = phase_train(*model, dense,
                                                   dense_streams, signals)
+    phase_tide(*model, dense, dense_streams)
     del model
     for row in rows:
         row["launches"] = launches[row["name"]]

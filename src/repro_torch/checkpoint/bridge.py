@@ -41,12 +41,6 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def to_numpy(params: ParamTree) -> Dict[str, np.ndarray]:
-    """The inverse: ``{'/'-joined key: np.ndarray}`` on the host (bf16
-    leaves are widened to fp32, numpy having no bf16)."""
-    return {key: _host(t) for key, t in params.flat().items()}
-
-
 def target_from_numpy(cfg: ModelConfig, flat, *, device) -> ParamTree:
     from repro_torch.models import transformer
     return from_numpy(transformer.param_specs(cfg), flat, device=device,
@@ -59,16 +53,26 @@ def draft_from_numpy(dcfg: ModelConfig, flat, *, device) -> ParamTree:
                       dtype=dcfg.act_dtype)
 
 
-def tree_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """A nested dict of tensors (a flat dict of draft leaves, optimizer
-    state) as ``{'/'-joined key: np.ndarray}``: JAX's ``_flatten`` keys
+def flat(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{'/'-joined key: tensor}`` of a ``ParamTree`` or a nested dict of
+    tensors, in sorted-key order: JAX's ``_flatten`` keys and leaf order
     of the same pytree."""
+    if isinstance(tree, ParamTree):
+        return tree.flat()
     if isinstance(tree, torch.Tensor):
-        return {prefix: _host(tree)}
+        return {prefix: tree}
     out = {}
     for k in sorted(tree):
-        out.update(tree_to_numpy(tree[k], f"{prefix}/{k}" if prefix else k))
+        out.update(flat(tree[k], f"{prefix}/{k}" if prefix else k))
     return out
+
+
+def tree_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of ``from_numpy``: a ``ParamTree`` or nested dict of
+    tensors (a flat dict of draft leaves, optimizer state) as
+    ``{'/'-joined key: np.ndarray}`` on the host (bf16 leaves are
+    widened to fp32, numpy having no bf16)."""
+    return {key: _host(t) for key, t in flat(tree, prefix).items()}
 
 
 def adamw_state_from_numpy(flat, *, device) -> dict:

@@ -1,0 +1,305 @@
+"""TIDE system orchestrator (paper Fig. 1), synchronous mode; port of
+``repro/core/tide.py``.
+
+Wires the serving engine, the training-signal extractor, the Algorithm 1
+controller, the optional Eq. 5 drafter and the draft training service
+into the adaptive loop.  Serving and training meet at two seams:
+
+  * **signals out**: the engine's superstep unpack pushes packed
+    hidden-state windows into a bounded drop-oldest
+    ``core.transport.SignalChannel``;
+  * **drafts in**: ``training.service.TrainingService`` runs
+    ``DraftTrainer.train_cycle`` and publishes each gate-accepted draft
+    as a versioned ``DraftVersion``, which the engine picks up through
+    its ``_poll_deploy`` before its next dispatch.
+
+``async_train=False`` (the only mode of this slice) calls
+``service.drain()`` at request-completion boundaries, blocking and
+deterministic: a passing draft hot-swaps in mid-stream at the next
+dispatch, as in JAX's sync mode.  The asynchronous mode, with its
+background trainer and deploy-time reseed, is ROADMAP queue 1 item 2;
+the fleet (``TideConfig.fleet``) is item 7.  Both raise
+``NotImplementedError``.
+
+Serving knobs live in one ``serving.policy.ServingConfig``
+(``TideConfig(serving=...)``); the flat ``TideConfig`` fields mirror it.
+The system owns one ``obs`` instrument set shared by every component: a
+``MetricsRegistry`` (``self.metrics``; ``summary()`` is a view over it)
+and the tracer and flight recorder that ``TideConfig.obs`` builds.
+
+The system runs on the CUDA card unless ``device="cpu"`` is passed, as
+the engine and the trainer do.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, List, Optional
+
+from repro_torch.checkpoint.ckpt import DraftDeployGate
+from repro_torch.core import eagle
+from repro_torch.core.adaptive import AdaptiveDrafter, LatencyProfile
+from repro_torch.core.controller import TrainingController
+from repro_torch.core.signals import SignalExtractor
+from repro_torch.core.transport import SignalChannel
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs import ObsConfig
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.serving.engine import ServingEngine, resolve_device
+from repro_torch.serving.policy import ServingConfig
+from repro_torch.serving.request import Request
+from repro_torch.training.draft_trainer import DraftTrainer
+from repro_torch.training.service import TrainingService
+
+
+@dataclasses.dataclass
+class TideConfig:
+    """System configuration.  Serving knobs live in one unified
+    ``serving.policy.ServingConfig`` (``TideConfig(serving=...)``); the
+    flat legacy fields remain as a convenience layer: when ``serving``
+    is omitted they assemble one, when it is given they mirror its
+    values.  Fields and defaults are JAX's."""
+    gamma: int = 3
+    batch_size: int = 4
+    max_len: int = 160
+    greedy: bool = True
+    superstep_rounds: int = 8         # 0 = per-step reference loop
+    eos_id: Optional[int] = None
+    ema: float = 0.9                  # acceptance-EMA decay
+    tree_width: int = 0               # >=1: draft token trees
+    adaptive_spec: bool = True        # False = TIDE-default (paper §5.4)
+    selective_training: bool = True
+    signal_window: int = 24
+    n_threshold: int = 96             # windows per training cycle
+    train_epochs: int = 2
+    train_min_steps: int = 80         # optimizer-step floor per cycle
+    seed: int = 0
+    # ---- training mode and channel
+    async_train: bool = False         # unported (ROADMAP queue 1 item 2)
+    channel_capacity: int = 512       # SignalChannel bound (batches)
+    reseed_window: int = 0            # async mode only (zeroed in sync)
+    gate_arrivals: bool = False       # respect trace arrival timestamps
+    prefill_chunk: int = 0            # unported (engine refuses > 0)
+    # ---- paged KV cache (core/paging.py; 0 = dense per-lane caches)
+    page_size: int = 0
+    num_pages: int = 0                # pool size (0 = dense footprint)
+    share_prefix: bool = True         # COW prompt-prefix sharing
+    # ---- serving control plane (see serving/policy.py)
+    admission: str = "fifo"           # fifo | priority | deadline | wedf
+    commit: str = "cohort"            # engine refuses another value
+    admission_lookahead: int = 64     # reorder window (non-FIFO policies)
+    preempt: str = "none"             # engine refuses another value
+    shed: str = "none"                # engine refuses another value
+    shed_queue_depth: int = 64
+    idle_wait_s: float = 0.005        # gated-arrival idle-tick bound
+    spec_park_patience: int = 0       # >0: park speculation + capture
+    spec_probe_interval: int = 8      # parked dispatches between probes
+    trainer_threads: int = 0          # engine refuses > 0
+    # ---- observability: not a ServingConfig knob; the engine takes the
+    #      built tracer/recorder as collaborators
+    obs: Optional[ObsConfig] = None
+    # ---- disaggregation: unported (ROADMAP queue 1 item 7)
+    fleet: Optional[object] = None
+    serving: Optional[ServingConfig] = None
+
+    # knobs shared (by name) with ServingConfig: assembled into one
+    # when ``serving`` is omitted, mirrored back when it is given
+    _SHARED_FIELDS = ("gamma", "batch_size", "max_len", "greedy", "seed",
+                      "superstep_rounds", "eos_id", "ema", "tree_width",
+                      "gate_arrivals", "prefill_chunk", "reseed_window",
+                      "page_size", "num_pages", "share_prefix",
+                      "admission", "commit", "admission_lookahead",
+                      "preempt", "shed", "shed_queue_depth",
+                      "idle_wait_s", "spec_park_patience",
+                      "spec_probe_interval", "trainer_threads")
+
+    def __post_init__(self):
+        if self.serving is None:
+            self.serving = ServingConfig(**{
+                f: getattr(self, f) for f in self._SHARED_FIELDS})
+            return
+        # Flat fields set away from both their default and the serving
+        # value override the serving config; the rest become read
+        # mirrors of it (so ``dataclasses.replace(tc, batch_size=8)``
+        # overrides only what it changes).
+        defaults = {f.name: f.default
+                    for f in dataclasses.fields(type(self))}
+        over = {f: getattr(self, f) for f in self._SHARED_FIELDS
+                if getattr(self, f) != defaults[f]
+                and getattr(self, f) != getattr(self.serving, f)}
+        if over:
+            self.serving = dataclasses.replace(self.serving, **over)
+        for f in self._SHARED_FIELDS:
+            setattr(self, f, getattr(self.serving, f))
+
+
+def _refuse(tide_cfg: TideConfig):
+    if tide_cfg.async_train:
+        raise NotImplementedError(
+            "TideConfig(async_train=True) is not ported yet (ROADMAP "
+            "queue 1 item 2: asynchronous adaptation loop)")
+    if tide_cfg.fleet is not None:
+        raise NotImplementedError(
+            "TideConfig(fleet=...) is not ported yet (ROADMAP queue 1 "
+            "item 7: fleet)")
+
+
+class TideSystem:
+    def __init__(self, cfg: ModelConfig, params, tide_cfg: TideConfig,
+                 profile: Optional[LatencyProfile] = None,
+                 dparams=None, device=None):
+        _refuse(tide_cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.tcfg = tide_cfg
+        self.dcfg = eagle.draft_config(cfg)
+        if dparams is None:
+            dparams = eagle.draft_init(self.dcfg, tide_cfg.seed + 7,
+                                       device=self.device)
+        self._dparams0 = dparams
+        self.obs = tide_cfg.obs if tide_cfg.obs is not None else ObsConfig()
+        self.metrics = MetricsRegistry()
+        self.tracer, self.recorder = self.obs.build()
+        n_threshold = tide_cfg.n_threshold * tide_cfg.signal_window
+        self.controller = TrainingController(n_threshold=n_threshold,
+                                             n_init=4)
+        drafter = None
+        if tide_cfg.adaptive_spec and profile is not None:
+            drafter = AdaptiveDrafter(profile, gamma=tide_cfg.gamma)
+        # the channel must be able to buffer at least one cycle's worth
+        # of windows, or training starves behind the drop-oldest bound
+        self.channel = SignalChannel(
+            capacity=max(tide_cfg.channel_capacity, tide_cfg.n_threshold))
+        self.trainer = DraftTrainer(cfg, self.dcfg, params["embed"],
+                                    device=self.device)
+        self.gate = DraftDeployGate(dparams)
+        self.service = TrainingService(
+            self.trainer, self.gate, self.channel,
+            controller=self.controller,
+            selective=tide_cfg.selective_training,
+            n_threshold=n_threshold,
+            signal_window=tide_cfg.signal_window,
+            train_epochs=tide_cfg.train_epochs,
+            train_min_steps=tide_cfg.train_min_steps,
+            seed=tide_cfg.seed,
+            engine_steps_fn=lambda: self.engine.stats.steps,
+            tracer=self.tracer, registry=self.metrics)
+        self.extractor = SignalExtractor(self.channel,
+                                         window=tide_cfg.signal_window)
+        self.events = self.service.events
+        # re-seeding only makes sense with the async deploy path, so
+        # sync mode zeroes it; the system's seed draws the draft and
+        # orders the trainer's batches, and the engine's would key only
+        # sampling, which the engine refuses
+        scfg = dataclasses.replace(tide_cfg.serving, reseed_window=0,
+                                   seed=ServingConfig.seed)
+        self.engine = ServingEngine(
+            cfg, params, self.dcfg, dparams, config=scfg,
+            policy=scfg.make_policy(drafter),
+            controller=(self.controller if tide_cfg.selective_training
+                        else None),
+            extractor=self.extractor,
+            tracer=self.tracer, recorder=self.recorder,
+            metrics=self.metrics, device=self.device)
+        # start in collection mode so the cold draft trains immediately
+        self.controller.collection_enabled = True
+
+    # ----------------------------------------------------------- training
+    def _drain_train(self, _req=None):
+        """Run every cycle the buffered signals allow, blocking serving,
+        then deploy at once so the next dispatch uses the new draft (the
+        engine's own pickup protocol)."""
+        self.service.drain()
+        self.engine._poll_deploy(self.service.poll)
+
+    # ------------------------------------------------------------ serving
+    def run(self, waves: Iterable[List], max_new_tokens: int = 48
+            ) -> List[Request]:
+        """Serve a workload already grouped into waves of (domain,
+        prompt) pairs, training after each wave.  Returns all completed
+        requests."""
+        done: List[Request] = []
+        for wave in waves:
+            reqs = [Request(prompt=p, domain=d,
+                            max_new_tokens=max_new_tokens)
+                    for d, p in wave]
+            self.engine.serve_wave(reqs)
+            done.extend(reqs)
+            self._drain_train()
+        return done
+
+    def run_stream(self, requests: Iterable[Request]) -> List[Request]:
+        """Serve a request stream with continuous batching, draining the
+        training service at request-completion boundaries (a passing
+        draft hot-swaps in mid-stream)."""
+        return self.engine.serve_stream(requests,
+                                        on_complete=self._drain_train)
+
+    def requests_from_trace(self, trace) -> List[Request]:
+        """``data.workloads.ArrivalEvent`` records as engine requests, in
+        trace order; arrival times are replayed only when
+        ``gate_arrivals`` is set.  SLO annotations ride along for the
+        deadline/priority admission policies."""
+        return [Request(prompt=ev.prompt, domain=ev.domain,
+                        max_new_tokens=ev.max_new_tokens,
+                        arrives_at=ev.t,
+                        deadline=getattr(ev, "deadline", None),
+                        priority=getattr(ev, "priority", 0))
+                for ev in trace]
+
+    # ----------------------------------------------------------- lifecycle
+    def close(self):
+        """Close the training service's channel; buffered signals remain
+        drainable.  Idempotent."""
+        self.service.close()
+
+    def reset_adaptation(self):
+        """Reset every adaptation-side component to its post-construction
+        state (draft params, deploy gate, controller, channel, signal
+        windows, serving stats) while keeping the engine and its
+        buffers.  Holds the service's train lock throughout."""
+        with self.service._train_lock:
+            self.channel.reset()
+            self.extractor.reset()
+            self.controller.reset()
+            self.controller.collection_enabled = True   # as in __init__
+            self.gate.reset(self._dparams0)
+            self.service.reset()
+            self.engine.reset_adaptation(self._dparams0)
+
+    # ------------------------------------------------------------- stats
+    def export_trace(self, path: Optional[str] = None) -> Dict:
+        """The span tracer's buffer as a Chrome/Perfetto trace-event JSON
+        document, written to ``path`` (default ``ObsConfig.trace_path``)
+        when one is known."""
+        return self.tracer.export(path if path is not None
+                                  else self.obs.trace_path)
+
+    def snapshot(self) -> Dict:
+        """Flat metrics snapshot across every registry namespace."""
+        return self.metrics.snapshot()
+
+    def summary(self) -> Dict:
+        st = self.engine.stats
+        return {
+            "tokens": st.tokens_out,
+            "throughput_tok_s": st.throughput,
+            "accept_len": st.accept_len,
+            "steps": st.steps,
+            "spec_steps": st.spec_steps,
+            "refills": st.refills,
+            "occupancy": st.occupancy,
+            "ttft_p50_s": st.ttft_p50,
+            "latency_p95_s": st.latency_p95,
+            "idle_supersteps": st.idle_supersteps,
+            "deploys": st.deploys,
+            "reseeds": 0,                # deploy-time reseed: item 2
+            "spec_parks": self.engine.policy.speculation.parks,
+            "spec_resumes": self.engine.policy.speculation.resumes,
+            "train_cycles": len([e for e in self.events
+                                 if e["kind"] == "train_cycle"]),
+            "deployed": self.gate.version,
+            "trainer_failures": self.service.failures,
+            "signals_collected": self.channel.total_added,
+            "signal_bytes": self.channel.total_bytes,
+            "signals_dropped": self.channel.dropped,
+        }

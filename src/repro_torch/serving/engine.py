@@ -51,9 +51,11 @@ Differences from the JAX engine:
     reserves the tree's block of gamma * W + 1 rows (the chain reserves
     gamma + 1).
   * Only this slice is ported.  Sampled decoding, chunked refill prefill
-    (and with it the paged prefix resume) and deploy re-seeding raise
-    ``NotImplementedError`` naming their ROADMAP item; preemption,
-    spill/restore and load shedding have no knob in the port yet.
+    (and with it the paged prefix resume and the eager commit), deploy
+    re-seeding, the trainer-thread knob, preemption and load shedding
+    raise ``NotImplementedError`` naming their ROADMAP item, and so does
+    any other value of a knob that only they read (``seed``,
+    ``shed_queue_depth``).
 """
 from __future__ import annotations
 
@@ -204,17 +206,31 @@ del _name, _view
 
 
 def _unported(config: ServingConfig):
-    """Raise for every configuration outside this slice."""
+    """Raise for every configuration outside the ported slices, naming
+    its ROADMAP queue 1 item."""
     checks = (
-        (not config.greedy, "greedy=False", "sampled decoding"),
-        (config.prefill_chunk > 0, "prefill_chunk>0",
+        (not config.greedy, "greedy=False", 4, "sampled decoding"),
+        (config.seed != ServingConfig.seed, f"seed={config.seed}", 4,
+         "sampled decoding"),
+        (config.prefill_chunk > 0, "prefill_chunk>0", 5,
          "chunked refill prefill"),
-        (config.reseed_window > 0, "reseed_window>0", "overload and reseed"),
+        (config.commit != "cohort", f"commit={config.commit!r}", 5,
+         "chunked refill prefill"),
+        (config.reseed_window > 0, "reseed_window>0", 2,
+         "overload and reseed"),
+        (config.trainer_threads > 0, "trainer_threads>0", 2,
+         "asynchronous adaptation loop"),
+        (config.preempt != "none", f"preempt={config.preempt!r}", 6,
+         "overload"),
+        (config.shed != "none", f"shed={config.shed!r}", 6, "overload"),
+        (config.shed_queue_depth != ServingConfig.shed_queue_depth,
+         f"shed_queue_depth={config.shed_queue_depth}", 6, "overload"),
     )
-    for bad, what, item in checks:
+    for bad, what, n, item in checks:
         if bad:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1: {item})")
+                f"{what} is not ported yet (ROADMAP queue 1 item {n}: "
+                f"{item})")
 
 
 class ServingEngine:
@@ -410,6 +426,22 @@ class ServingEngine:
             self.recorder.global_event("deploy", round_=self.stats.steps,
                                        seq=ver.seq)
         return ver
+
+    def reset_adaptation(self, dparams):
+        """Back to the post-construction adaptive state: draft params,
+        acceptance EMA, deploy and sid counters, the page allocator,
+        stats and the speculation policy (JAX's, less the chunk
+        pipelines and the spill store, which the port does not have)."""
+        self.dparams = dparams
+        self.accept_ema = 1.0
+        self._deploy_seq = 0
+        self._sid_next = 0
+        if self.allocator is not None:
+            self.allocator.reset()
+        self.stats = ServingStats(registry=self.metrics)
+        self.policy.speculation.reset()
+        if self.drafter is not None:
+            self.drafter.enabled = True
 
     # -------------------------------------------------- observability
     def _register_obs_metrics(self):

@@ -24,7 +24,8 @@ threshold table, but it never adds a device-to-host round-trip.
 
 The JAX engine's commit, shed and preemption policies belong to the
 chunked-refill and overload paths, which are not ported; they come back
-with those paths.
+with those paths.  Their ``ServingConfig`` knobs exist with JAX's
+defaults, and the engine refuses any other value.
 
 ``ServingConfig`` is the unified serving configuration consumed by
 ``ServingEngine``.
@@ -320,9 +321,13 @@ class ServingConfig:
     """Unified serving configuration: every engine/scheduler knob, plus
     the policy selection, in one dataclass (``ServingEngine(config=...)``).
 
-    ``prefill_chunk``, ``reseed_window`` and ``greedy=False`` name paths
-    of the JAX engine that are not ported yet; the engine raises
-    ``NotImplementedError`` for them."""
+    The fields, their names and defaults, are JAX's.  ``greedy=False``,
+    ``prefill_chunk``, ``commit``, ``preempt``, ``shed``,
+    ``reseed_window`` and ``trainer_threads`` away from their defaults
+    name paths of the JAX engine that are not ported yet, as do ``seed``
+    (it keys only sampling) and ``shed_queue_depth`` (it bounds only
+    the "queue" shed policy); the engine raises ``NotImplementedError``
+    for any of them (``_unported``)."""
 
     # ---- engine geometry / decode
     gamma: int = 3
@@ -332,8 +337,10 @@ class ServingConfig:
     superstep_rounds: int = 8
     eos_id: Optional[int] = None
     ema: float = 0.9
+    seed: int = 0                      # sampling keys (sampling: unported)
     # ---- admission / scheduling
     admission: str = "fifo"            # fifo | priority | deadline | wedf
+    commit: str = "cohort"             # unported: eager chunk commit
     admission_lookahead: int = 64      # reorder window (non-FIFO policies)
     gate_arrivals: bool = False
     idle_wait_s: float = 0.005
@@ -360,8 +367,14 @@ class ServingConfig:
     # ---- speculation runtime control (0 = gate only, never park)
     spec_park_patience: int = 0
     spec_probe_interval: int = 8
+    # ---- unported: overload response (preemption, load shedding)
+    preempt: str = "none"              # none | deadline
+    shed: str = "none"                 # none | expired | queue
+    shed_queue_depth: int = 64
     # ---- unported: draft re-seeding after a deploy
     reseed_window: int = 0
+    # ---- unported: the background trainer's thread priority
+    trainer_threads: int = 0
 
     def make_policy(self, drafter=None) -> ServingPolicy:
         """Build the ``ServingPolicy`` this config names."""

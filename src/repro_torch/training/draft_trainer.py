@@ -22,25 +22,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import bridge
 from repro_torch.core import eagle
 from repro_torch.core.signals import SignalBatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamTree, unflatten
 from repro_torch.serving.engine import resolve_device
 from repro_torch.training.optimizer import Optimizer, adamw
-
-
-def _flat(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """``{'/'-joined key: tensor}`` of a ``ParamTree`` or nested dict, in
-    sorted-key order (the JAX pytree's leaf order)."""
-    if isinstance(tree, ParamTree):
-        return tree.flat()
-    if isinstance(tree, torch.Tensor):
-        return {prefix: tree}
-    out = {}
-    for k in sorted(tree):
-        out.update(_flat(tree[k], f"{prefix}/{k}" if prefix else k))
-    return out
 
 
 class DraftTrainer:
@@ -91,7 +79,7 @@ class DraftTrainer:
         ``{'/'-joined key: tensor}`` (the served draft's leaves are
         frozen ``nn.Parameter``s and stay untouched)."""
         return {k: t.detach().to(self.device, copy=True).requires_grad_(True)
-                for k, t in _flat(dparams).items()}
+                for k, t in bridge.flat(dparams).items()}
 
     # ---------------------------------------------------------------- step
     def loss(self, params, feats, toks, ttt: bool):

@@ -34,7 +34,7 @@ def test_round_trip_exact(which):
     else:
         params = bridge.draft_from_numpy(eagle.draft_config(cfg), flat,
                                          device="cpu")
-    back = bridge.to_numpy(params)
+    back = bridge.tree_to_numpy(params)
     assert sorted(back) == sorted(flat)
     for k in flat:
         assert back[k].shape == flat[k].shape

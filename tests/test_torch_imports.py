@@ -42,7 +42,12 @@ def test_port_file_list_is_complete():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "src/repro_torch/serving/engine.py",
                  "src/repro_torch/kernels/verify_attn/ops.py",
-                 "src/repro_torch/core/paging.py"):
+                 "src/repro_torch/core/paging.py",
+                 "src/repro_torch/core/tide.py",
+                 "src/repro_torch/core/transport.py",
+                 "src/repro_torch/training/service.py",
+                 "src/repro_torch/checkpoint/ckpt.py",
+                 "src/repro_torch/data/workloads.py"):
         assert want in names
 
 
@@ -89,13 +94,29 @@ def test_engine_unported_paths_raise(kw, item):
 @pytest.mark.parametrize("cls,kw", [
     ("ServingConfig", dict(preempt="deadline")),
     ("ServingConfig", dict(shed="expired")),
-    ("ServingConfig", dict(shed_queue_depth=64)),
+    ("ServingConfig", dict(shed_queue_depth=9)),
     ("ServingConfig", dict(seed=5)),
     ("ServingPolicy", dict(preemption=object())),
 ])
 def test_overload_and_paging_knobs_are_not_accepted(cls, kw):
-    """Preemption, shedding and sampling seeds have no path in the port
-    yet, so their knobs do not exist (rather than being ignored)."""
+    """Preemption, shedding and sampling have no path in the port yet.
+    Their ``ServingConfig`` knobs exist with JAX's defaults, and an
+    engine refuses any other value, naming the ROADMAP item, rather than
+    ignore it; the policy slot does not exist."""
     from repro_torch.serving import policy
-    with pytest.raises(TypeError):
-        getattr(policy, cls)(**kw)
+    if cls == "ServingPolicy":
+        with pytest.raises(TypeError):
+            policy.ServingPolicy(**kw)
+        return
+    from repro_torch.configs import get
+    from repro_torch.core import eagle
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get("tide-tiny")
+    dcfg = eagle.draft_config(cfg)
+    params = T.init(cfg, 0, device="cpu")
+    dparams = eagle.draft_init(dcfg, 1, device="cpu")
+    item = "item 4: sampled decoding" if "seed" in kw else "item 6: overload"
+    with pytest.raises(NotImplementedError, match=item):
+        ServingEngine(cfg, params, dcfg, dparams, device="cpu",
+                      config=policy.ServingConfig(**kw))

@@ -391,7 +391,7 @@ def cycles(pretrained):
                                       for f, t in pt["windows"]],
                           epochs=1, min_steps=CYCLE_STEPS, seed=3)
     tt = DraftTrainer(pt["cfg"], pt["dcfg"], pt["tp"]["embed"], device="cpu")
-    before = bridge.to_numpy(pt["tdp"])
+    before = bridge.tree_to_numpy(pt["tdp"])
     tres = tt.train_cycle(pt["tdp"], [SignalBatch(f, t)
                                       for f, t in pt["windows"]],
                           epochs=1, min_steps=CYCLE_STEPS, seed=3)
@@ -433,14 +433,14 @@ def test_train_cycle_returns_servable_draft(cycles, pretrained):
     tres, jres = cycles["tres"], cycles["jres"]
     assert isinstance(tres["dparams"], type(pretrained["tdp"]))
     assert not any(p.requires_grad for p in tres["dparams"].parameters())
-    got = bridge.to_numpy(tres["dparams"])
+    got = bridge.tree_to_numpy(tres["dparams"])
     want = _flatten(jres["dparams"])
     assert set(got) == set(want)
     for k in want:
         scale = max(np.abs(want[k]).max(), 1e-12)
         np.testing.assert_allclose(got[k] / scale, want[k] / scale,
                                    rtol=1e-3, atol=1e-3, err_msg=k)
-    after = bridge.to_numpy(pretrained["tdp"])
+    after = bridge.tree_to_numpy(pretrained["tdp"])
     assert all(np.array_equal(after[k], cycles["before"][k]) for k in after)
 
 
