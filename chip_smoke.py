@@ -140,6 +140,41 @@ Phases, one JSON line each:
            streams equal the serve's, the gate deployed inside stream 1,
            stream 2's mean accepted length is above 1.0, and each cycle
            launched the attention backward twice a step.
+  reseed   the deploy-time re-seed of the draft cache at full width
+           (batch 8, max_len 1024, gamma 3, K 8, reseed_window 24): the
+           serve's first 8 requests through three supersteps with the
+           serve's draft (A) and, from their own prologue, with a second
+           draft B (eagle.draft_init seed 99); A's cache re-seeded from
+           its capture ring with B must hold to B's on the window,
+           position for position (relative L2 below REL_L2_TOL, per
+           element BF16_TOL), and move away from A's; re-seeded with A
+           it must stay within the same bounds of A's.  Again with page
+           16: the paged re-seed's rows equal the dense re-seed's on the
+           gathered view (torch.equal) and no page leaks.  Reports the
+           re-seed's host ms and CUDA-event ms, dense and paged, and
+           the error of the window computed in one pass, as JAX does
+           (the engine computes it in blocks of gamma + 1 columns,
+           serving's extend shapes).
+  tide_async  TideSystem in async mode (async_train True, reseed_window
+           16, otherwise the tide phase's configuration) on the serve's
+           weights and untrained draft: the training service's thread
+           trains on a CUDA stream of its own while the serving thread
+           serves the 16 requests as stream 1, then again as stream 2
+           (a third stream only if no deploy was picked up by then).
+           Each stream and superstep is timed with the serving stream's
+           synchronize, never the device's.  Reports the card count and
+           pick_training_device(), each cycle (event, seconds, the
+           engine's dispatch count at its start and end, backward
+           launches), each deploy's round, superstep and re-seeds, the
+           mean superstep ms with a cycle in flight and without, the
+           stream walls beside the tide phase's, the mean accepted
+           length of stream 1 after its first deploy and of stream 2,
+           thread_cap and peak memory.  Asserts every stream equals the
+           serve's, no trainer failure, at least one cycle with at least
+           one superstep dispatched while it ran, a deploy picked up
+           inside a stream, re-seeds equal to deploys, two backward
+           launches a step, and the thread gone after close() (a second
+           close() a no-op).
   profile  torch.profiler over a short serve on the dense engine right
            after its serve, then on the half-pool paged engine, each
            tree engine and the W = 4 paged tree engine, each right after
@@ -1642,6 +1677,315 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     assert all(e["flash_attention_bwd"] == 2 * e["steps"] for e in events), \
         events
     assert row["stream2_mean_accept_len"] > 1.0, row["stream2_mean_accept_len"]
+    return row
+
+
+def _drive_reseed(cfg, params, dcfg, dp, reqs, **kw):
+    """An engine with a capture ring: the prologue of ``reqs`` and three
+    supersteps (24 rounds, every lane still active), with draft ``dp``.
+    Returns (engine, dcache, state)."""
+    from repro_torch.core import speculative as spec
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    from repro_torch.serving.scheduler import Scheduler
+    dev = torch.device("cuda")
+    eng = ServingEngine(cfg, params, dcfg, dp, device=dev,
+                        deploy_source=lambda: None, config=ServingConfig(
+                            batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
+                            superstep_rounds=8, reseed_window=24, **kw))
+    sched = Scheduler(8, iter(reqs))
+    eng._assign_sids(sched.admit())
+    cache, dcache, carry, first = eng._prologue(reqs)
+    state = spec.init_superstep_state(
+        carry, first, sids=torch.as_tensor(eng._slot_sids(reqs), device=dev),
+        capture_window=eng.reseed_window)
+    mx = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    for _ in range(3):
+        out = eng._superstep(cache, dcache, state, mx,
+                             eng.policy.speculation.dispatch_table())
+        cache, dcache, state = out["cache"], out["dcache"], out["state"]
+    torch.cuda.synchronize()
+    assert bool(state.active.all()), "a lane finished inside the window"
+    return eng, dcache, state
+
+
+def _timed_reseed(eng, dp, dcache, state):
+    """One re-seed, timed on the host clock (its enqueue) and by CUDA
+    events around it; returns (dcache, host_ms, event_ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    out = eng._reseed_fn(dp, dcache, state)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return out, host_ms, start.elapsed_time(end)
+
+
+def phase_reseed(cfg, params, dcfg, dparams):
+    """The deploy-time re-seed at full width: JAX's
+    test_reseed_matches_new_draft_serving on the card, its idempotence
+    within bounds, and the paged re-seed against the dense one."""
+    import gc
+
+    from repro_torch.core import eagle, paging
+    draft_b = eagle.draft_init(dcfg, 99, device=torch.device("cuda"))
+    reqs = _serve_requests(cfg.vocab_size)[:8]
+    launches0 = {k: f.launches for k, f in _kernel_fns().items()}
+
+    def fresh():
+        return [type(r)(prompt=list(r.prompt), max_new_tokens=64)
+                for r in reqs]
+
+    eng_a, dc_a, st_a = _drive_reseed(cfg, params, dcfg, dparams, fresh())
+    _, dc_b, st_b = _drive_reseed(cfg, params, dcfg, draft_b, fresh())
+    w = eng_a.reseed_window
+    n = torch.clamp(st_a.cap_count, max=w)
+    assert bool((n > 0).all()), "the capture ring never filled"
+    len_a, len_b = dc_a["lengths"].tolist(), dc_b["lengths"].tolist()
+    spans = [(int(len_a[i] - n[i]), min(len_a[i], len_b[i]))
+             for i in range(8)]
+    assert all(hi > lo for lo, hi in spans), spans
+
+    def window(dc):
+        return {leaf: torch.cat([dc[leaf][i, lo:hi]
+                                 for i, (lo, hi) in enumerate(spans)])
+                for leaf in ("k", "v")}
+
+    a_before = {k: v.clone() for k, v in dc_a.items()}
+    win_a = window(a_before)
+    # JAX's shape, the window in one pass (M = 8 * 24 rows a product):
+    # reported beside the engine's blocks of gamma + 1 columns
+    one = eagle.reseed_draft_rows_from_ring(
+        dcfg, draft_b, params["embed"], {k: v.clone() for k, v in
+                                         a_before.items()},
+        st_a.cap_feats, st_a.cap_toks, st_a.cap_count)
+    out, host_ms, event_ms = _timed_reseed(eng_a, draft_b, dc_a, st_a)
+    win_r, win_b, win_one = window(out), window(dc_b), window(one)
+    one_pass_rel_l2 = {
+        leaf: float((win_one[leaf].float() - win_b[leaf].float()).norm()
+                    / win_b[leaf].float().norm()) for leaf in ("k", "v")}
+    equal_b = all(torch.equal(win_r[leaf], win_b[leaf])
+                  for leaf in ("k", "v"))
+    err = {leaf: hold(win_r[leaf], win_b[leaf], f"reseed {leaf} vs B")
+           for leaf in ("k", "v")}
+    moved = {leaf: float((win_r[leaf].float() - win_a[leaf].float()).norm()
+                         / win_a[leaf].float().norm()) for leaf in ("k", "v")}
+    assert min(moved.values()) > 100 * REL_L2_TOL, moved
+    # A re-seeded with A: within the same bounds of A's own rows
+    same = {k: v.clone() for k, v in a_before.items()}
+    same, same_host_ms, same_event_ms = _timed_reseed(eng_a, dparams, same,
+                                                      st_a)
+    win_s = window(same)
+    err_same = {leaf: hold(win_s[leaf], win_a[leaf], f"reseed {leaf} vs A")
+                for leaf in ("k", "v")}
+    bitwise_same = all(torch.equal(same[leaf], a_before[leaf])
+                       for leaf in ("k", "v"))
+    # paged: the same lanes through page 16, re-seeded with B
+    eng_p, dc_p, st_p = _drive_reseed(cfg, params, dcfg, dparams, fresh(),
+                                      page_size=GLM["P"])
+    assert torch.equal(st_p.cap_count, st_a.cap_count)
+    assert torch.equal(dc_p["lengths"], dc_a["lengths"])
+    pout, p_host_ms, p_event_ms = _timed_reseed(eng_p, draft_b, dc_p, st_p)
+    paged_equal = {}
+    for leaf in ("k", "v"):
+        view = paging.gather_view(pout[leaf], pout["tbl"])
+        paged_equal[leaf] = all(
+            torch.equal(view[i, lo:hi], out[leaf][i, lo:hi])
+            for i, (lo, hi) in enumerate(spans))
+    for lane in range(8):
+        eng_p.allocator.free_lane(lane)
+    eng_p.release_prefix_cache()
+    eng_p.allocator.assert_clean()
+    launches = {k: f.launches - launches0[k]
+                for k, f in _kernel_fns().items()}
+    row = {"phase": "reseed", "model": cfg.name, "batch": 8,
+           "max_len": 1024, "gamma": GLM["GAMMA"], "reseed_window": w,
+           "cap_count": st_a.cap_count.tolist(), "lengths_a": len_a,
+           "lengths_b": len_b, "window_rows": sum(hi - lo for lo, hi in spans),
+           "max_abs_err_rel_l2_vs_b": err, "equal_b_bitwise": equal_b,
+           "one_pass_rel_l2_vs_b": one_pass_rel_l2,
+           "rel_l2_moved_from_a": moved,
+           "max_abs_err_rel_l2_same_draft": err_same,
+           "same_draft_bitwise": bitwise_same,
+           "paged_equal_dense": paged_equal,
+           "host_ms": {"dense": host_ms, "dense_same_draft": same_host_ms,
+                       "paged": p_host_ms},
+           "event_ms": {"dense": event_ms,
+                        "dense_same_draft": same_event_ms,
+                        "paged": p_event_ms},
+           "launches": launches, "nvidia_smi": smi()}
+    emit(row)
+    assert all(paged_equal.values()), paged_equal
+    del eng_a, eng_p, dc_a, dc_b, dc_p, out, pout, same, a_before, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
+                     sync_row):
+    """The asynchronous adaptation loop on the card: ``TideSystem`` with
+    ``async_train=True`` serves the 16 requests twice while its service
+    thread trains on its own CUDA stream, and each deploy picked up at a
+    superstep re-seeds the resident lanes' draft caches.  Streams and
+    supersteps are timed with the serving stream's synchronize (a
+    device-wide one would wait for training too)."""
+    import gc
+    import threading
+
+    from repro_torch.core.tide import TideConfig, TideSystem
+    from repro_torch.core.transport import pick_training_device
+    from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
+    tc = TideConfig(gamma=GLM["GAMMA"], batch_size=8, max_len=1024,
+                    superstep_rounds=8, adaptive_spec=False,
+                    signal_window=GLM["TRAIN_WINDOW"], n_threshold=8,
+                    train_epochs=2, train_min_steps=TIDE_STEPS, seed=0,
+                    async_train=True, reseed_window=16)
+    fns = dict(_kernel_fns(), flash_attention_bwd=flash_attention_bwd)
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "tree_launches"):
+            fn.tree_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system = TideSystem(cfg, params, tc, dparams=dparams, device="cuda")
+    eng, svc = system.engine, system.service
+    assert svc.running and svc._stream is not None
+    serving = torch.cuda.current_stream()
+    assert svc._stream != serving
+    deploys, cycles, steps_ms = [], [], []
+    in_flight = threading.Event()
+    poll_deploy, train_cycle = eng._poll_deploy, system.trainer.train_cycle
+    superstep = eng._superstep
+
+    def polled(source=None):
+        ver = poll_deploy(source)
+        if ver is not None:
+            deploys.append({"seq": ver.seq, "round": eng.stats.steps,
+                            "superstep": eng.stats.dispatches,
+                            "stream": len(walls) + 1,
+                            "in_flight": in_flight.is_set()})
+        return ver
+
+    def counted(*a, **kw):
+        bwd = flash_attention_bwd.launches
+        rec = {"dispatches_start": eng.stats.dispatches,
+               "t_start": time.perf_counter() - t_phase,
+               "stream": torch.cuda.current_stream() == svc._stream}
+        in_flight.set()
+        try:
+            res = train_cycle(*a, **kw)
+        finally:
+            in_flight.clear()
+        rec.update(dispatches_end=eng.stats.dispatches,
+                   t_end=time.perf_counter() - t_phase,
+                   flash_attention_bwd=flash_attention_bwd.launches - bwd)
+        cycles.append(rec)
+        return res
+
+    def timed(*a, **kw):
+        serving.synchronize()
+        during = in_flight.is_set()
+        s = time.perf_counter()
+        out = superstep(*a, **kw)
+        serving.synchronize()
+        steps_ms.append(((time.perf_counter() - s) * 1e3,
+                         during or in_flight.is_set()))
+        return out
+
+    eng._poll_deploy, system.trainer.train_cycle = polled, counted
+    eng._superstep = timed
+    t_phase = time.perf_counter()
+    streams, walls, marks = [], [], []
+    while len(streams) < 2 or (not deploys and len(streams) < 3):
+        reqs = _serve_requests(cfg.vocab_size)
+        marks.append(len(eng.stats.timeline))
+        serving.synchronize()
+        t0 = time.perf_counter()
+        system.run_stream(iter(reqs))
+        serving.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert all(r.finish_t is not None and len(r.generated) == 64
+                   for r in reqs), "a request did not finish"
+        streams.append([list(r.generated) for r in reqs])
+    served_s = time.perf_counter() - t_phase
+    thread = svc._thread
+    t0 = time.perf_counter()
+    svc.close(timeout=600.0)
+    close_s = time.perf_counter() - t0
+    thread_alive = thread is not None and thread.is_alive()
+    failures = svc.failures
+    system.close()                     # a second close: a no-op
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in fns.items()}
+    timeline = list(eng.stats.timeline)
+    assert len(timeline) == eng.stats.steps, "the timeline ring dropped"
+    bounds = marks[1:] + [len(timeline)]
+    parts = [timeline[a:b] for a, b in zip(marks, bounds)]
+    first = deploys[0]["round"] - marks[deploys[0]["stream"] - 1] \
+        if deploys else None
+    events = [{k: e[k] for k in ("eval_acc", "train_acc", "baseline",
+                                 "deployed", "steps", "seconds",
+                                 "engine_steps")} | cyc
+              for e, cyc in zip(system.events, cycles)]
+    during = [ms for ms, d in steps_ms if d]
+    outside = [ms for ms, d in steps_ms if not d]
+    summary = system.summary()
+    row = {"phase": "tide_async", "model": cfg.name, "requests": 16,
+           "config": {k: getattr(tc, k) for k in (
+               "batch_size", "max_len", "gamma", "superstep_rounds",
+               "signal_window", "n_threshold", "train_epochs",
+               "train_min_steps", "async_train", "reseed_window")},
+           "device_count": torch.cuda.device_count(),
+           "pick_training_device": str(pick_training_device()),
+           "cycles": len(events), "events": events, "deploys": deploys,
+           "gate_version": system.gate.version,
+           "reseeds": summary["reseeds"], "deploys_picked": summary["deploys"],
+           "superstep_ms_mean_during_cycle":
+               statistics.mean(during) if during else None,
+           "superstep_ms_mean_outside_cycle":
+               statistics.mean(outside) if outside else None,
+           "supersteps_during_cycle": len(during),
+           "supersteps_outside_cycle": len(outside),
+           "stream_wall_s": walls, "tide_sync_stream_wall_s":
+               sync_row["stream_wall_s"],
+           "stream_rounds": [len(p) for p in parts],
+           "stream1_accept_after_first_deploy": (
+               _mean_accept(parts[0][first:])
+               if deploys and deploys[0]["stream"] == 1 else None),
+           "stream_mean_accept_len": [_mean_accept(p) for p in parts],
+           "streams_equal_serve": [x == dense_streams for x in streams],
+           "serve_mean_accept_len": dense["mean_accept_len"],
+           "backward_launches_per_step": [
+               e["flash_attention_bwd"] / max(e["steps"], 1) for e in events],
+           "thread_cap": svc.stats()["thread_cap"],
+           "served_s": served_s, "close_s": close_s,
+           "summary": summary, "launches": launches,
+           "trainer_failures": failures,
+           "trainer_last_error": svc.last_error,
+           "max_memory_allocated_GB": peak_gb, "nvidia_smi": smi()}
+    emit(row)
+    ran = (svc.cycles, len(system.events), len(cycles))
+    del system, eng, svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert failures == 0 == row["trainer_failures"], \
+        f"a train cycle failed: {row['trainer_last_error']}"
+    assert not thread_alive, "the training thread outlived close()"
+    assert ran[0] == ran[1] == ran[2] >= 1, f"cycles run/recorded: {ran}"
+    assert all(c["stream"] for c in cycles), "a cycle ran off its stream"
+    assert all(s == dense_streams for s in streams), \
+        "an async stream != the serve's streams"
+    assert any(c["dispatches_end"] > c["dispatches_start"] for c in cycles), \
+        "no superstep was dispatched while a cycle ran"
+    assert row["gate_version"] >= 1 and deploys, \
+        "no deploy was picked up inside a stream"
+    assert row["reseeds"] == row["deploys_picked"] == len(deploys), row
+    assert all(e["flash_attention_bwd"] == 2 * e["steps"] for e in events), \
+        events
 
 
 def _train_step_split(trainer, dparams, batches, steps: int = 5) -> dict:
@@ -1799,7 +2143,9 @@ def main():
     torch.cuda.empty_cache()
     launches["flash_attention_bwd"] = phase_train(*model, dense,
                                                   dense_streams, signals)
-    phase_tide(*model, dense, dense_streams)
+    tide_row = phase_tide(*model, dense, dense_streams)
+    phase_reseed(*model)
+    phase_tide_async(*model, dense, dense_streams, tide_row)
     del model
     for row in rows:
         row["launches"] = launches[row["name"]]

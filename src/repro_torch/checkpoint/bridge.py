@@ -67,6 +67,14 @@ def flat(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def tree_to(tree, device, non_blocking: bool = False) -> ParamTree:
+    """A ``ParamTree`` (or nested dict of tensors) with every leaf copied
+    to ``device`` (on the current streams of the two devices)."""
+    return ParamTree(unflatten({
+        k: t.to(device, non_blocking=non_blocking)
+        for k, t in flat(tree).items()}))
+
+
 def tree_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     """The inverse of ``from_numpy``: a ``ParamTree`` or nested dict of
     tensors (a flat dict of draft leaves, optimizer state) as

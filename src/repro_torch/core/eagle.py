@@ -302,6 +302,101 @@ def scatter_draft_rows_paged(live, new, mask, src):
     return live
 
 
+def _ring_rows(dcfg: ModelConfig, dparams, embed_params, dcache, cap_feats,
+               cap_toks, cap_count, block: int = 0):
+    """The draft K/V rows of the ring-covered window under ``dparams``.
+
+    The draft's K/V at a cache position depend only on the ingested pair
+    (f, u) and the position's RoPE angle: norm1, the K/V projections and
+    RoPE of the one decoder layer.  So the last ``n = min(cap_count, W)``
+    positions of each lane, whose pairs the ring holds, are recomputed
+    here through the decode attention's own projection and RoPE code
+    (``attention.decode_qkv``), at ``start = lengths - n`` with the
+    lane's pad: the positions and angles of their first ingestion.
+
+    ``block`` > 0 computes the window ``block`` columns at a time (the
+    last block padded), so that every product and norm has the shape
+    serving's ``draft_extend`` gave it (``block`` = gamma + 1): a row's
+    value then does not depend on how many rows its product held, and on
+    the card the re-seeded rows are the serving rows bit for bit (a bf16
+    product of 8·24 rows and one of 8·4 differ in the last ulps).  0
+    computes the window in one pass, as JAX does.
+
+    Returns (k, v (B, W, Hk, D), start (B,), valid (B, W)): row j of a
+    lane belongs at position start + j and is valid for j < n."""
+    b, w = cap_toks.shape
+    dev = cap_toks.device
+    n = torch.clamp(cap_count, max=w)
+    j = torch.arange(w, device=dev)[None, :]
+    slot = ((cap_count - n)[:, None].long() + j) % w      # ring → time order
+    feats = torch.gather(cap_feats, 1, slot[..., None].expand(
+        b, w, cap_feats.shape[-1]))
+    toks = torch.gather(cap_toks, 1, slot)
+    start = dcache["lengths"] - n
+    blk = block if block > 0 else w
+    wp = -(-w // blk) * blk
+    if wp > w:
+        feats = torch.cat([feats, feats[:, :wp - w]], dim=1)
+        toks = torch.cat([toks, toks[:, :wp - w]], dim=1)
+    ks, vs = [], []
+    for c in range(0, wp, blk):
+        x = _fuse_inputs(dcfg, dparams, feats[:, c:c + blk],
+                         embed(embed_params, toks[:, c:c + blk],
+                               dcfg.act_dtype))
+        h = rmsnorm(dparams["norm1"], x, dcfg.norm_eps)
+        _, k, v = attn.decode_qkv(dcfg, dparams["attn"], h, start + c,
+                                  dcache["pad"])
+        ks.append(k)
+        vs.append(v)
+    k, v = torch.cat(ks, dim=1)[:, :w], torch.cat(vs, dim=1)[:, :w]
+    return k, v, start, j < n[:, None]
+
+
+def reseed_draft_rows_from_ring(dcfg: ModelConfig, dparams, embed_params,
+                                dcache, cap_feats, cap_toks, cap_count, *,
+                                block: int = 0):
+    """Rebuild the trailing draft-cache K/V rows under new ``dparams``
+    from the rolling capture ring (deploy-time re-seed), in place.
+
+    The last ``n = min(cap_count, W)`` positions of each lane, exactly
+    the pairs the ring holds, are recomputed for the new draft
+    (``_ring_rows``) and written at positions [lengths - n, lengths);
+    nothing past ``lengths`` or past max_len is written.  Positions older
+    than the window (and the prompt-seed region) keep the previous
+    draft's K/V: token streams stay correct either way (the target
+    verifies every draft); this only gives resident lanes the new
+    draft's acceptance at once instead of at lane retirement.
+
+    cap_feats: (B, W, F) ring of pair features; cap_toks: (B, W) ring of
+    pair tokens; cap_count: (B,) pairs ingested since lane admission
+    (the ring's write head); ``block``: see ``_ring_rows``.  Returns the
+    re-seeded draft cache."""
+    k, v, start, valid = _ring_rows(dcfg, dparams, embed_params, dcache,
+                                    cap_feats, cap_toks, cap_count, block)
+    attn.scatter_kv(dcache["k"], k, start, valid)
+    attn.scatter_kv(dcache["v"], v, start, valid)
+    return dcache
+
+
+def reseed_draft_rows_from_ring_paged(dcfg: ModelConfig, dparams,
+                                      embed_params, dcache, cap_feats,
+                                      cap_toks, cap_count, max_len: int, *,
+                                      block: int = 0):
+    """Paged twin of ``reseed_draft_rows_from_ring``: the same rows
+    (``_ring_rows``, the same inputs at the same RoPE positions, so
+    paged+reseed equals dense+reseed on the gathered view bit for bit),
+    written through the lane block table (``dcache["tbl"]``, which spans
+    ``max_len`` positions) into the page pools in place; invalid columns
+    and positions past the table go to the trash page, as every
+    draft-cache write of ``core.paging`` does."""
+    from repro_torch.core.paging import scatter_kv_paged
+    k, v, start, valid = _ring_rows(dcfg, dparams, embed_params, dcache,
+                                    cap_feats, cap_toks, cap_count, block)
+    scatter_kv_paged(dcache["k"], dcache["tbl"], k, start, valid)
+    scatter_kv_paged(dcache["v"], dcache["tbl"], v, start, valid)
+    return dcache
+
+
 # ------------------------------------------------------------- training
 def _masked_ce(logits, labels, m):
     """Mean over the mask of the cross-entropy of fp32 ``logits``."""

@@ -64,13 +64,16 @@ def page_slot(tbl: torch.Tensor, page_size: int, pos: torch.Tensor,
 
 
 def scatter_kv_paged(pool: torch.Tensor, tbl: torch.Tensor,
-                     new: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+                     new: torch.Tensor, lengths: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write the decode block's K/V rows ``new`` (B, T, Hk, D) at
-    positions ``lengths + [0, T)`` through the block table, in place.
-    pool: (NP + 1, P, Hk, D).  Returns ``pool``."""
+    positions ``lengths + [0, T)`` through the block table, in place;
+    rows where the optional (B, T) ``valid`` is False go to the trash
+    page.  pool: (NP + 1, P, Hk, D).  Returns ``pool``."""
     t = new.shape[1]
     pos = lengths[:, None].long() + torch.arange(t, device=pool.device)[None]
-    page, slot = page_slot(tbl, pool.shape[1], pos, pool.shape[0] - 1)
+    page, slot = page_slot(tbl, pool.shape[1], pos, pool.shape[0] - 1,
+                           valid=valid)
     pool[page, slot] = new.to(pool.dtype)
     return pool
 

@@ -312,19 +312,31 @@ def ema_update(ema, ell, decay: float):
 
 # ===================================================== fused superstep
 class SuperstepState(NamedTuple):
-    """Device-resident serving state threaded across supersteps."""
+    """Device-resident serving state threaded across supersteps.
+
+    ``cap_*`` (present only when deploy re-seeding is on) is a rolling
+    per-lane ring of the (feature, token) pairs the draft cache ingested,
+    enough to rebuild the last window's draft K/V rows under a freshly
+    deployed draft (``eagle.reseed_draft_rows_from_ring``)."""
     carry: SpecCarry
     active: torch.Tensor      # (B,) bool
     gen_count: torch.Tensor   # (B,) int32 committed tokens (incl. first)
     accept_ema: torch.Tensor  # () f32 EMA of acceptance length E[l]
     sid: torch.Tensor         # (B,) int32 sampling-stream id per lane
     step_idx: torch.Tensor    # (B,) int32 per-lane decode-step counter
+    cap_feats: Optional[torch.Tensor] = None   # (B, W, F) ring of pair feats
+    cap_toks: Optional[torch.Tensor] = None    # (B, W) int32 ring of tokens
+    cap_count: Optional[torch.Tensor] = None   # (B,) int32 pairs ingested
 
 
 def init_superstep_state(carry: SpecCarry, first_token, *,
                          accept_ema: float = 1.0,
                          eos_id: Optional[int] = None, active0=None,
-                         sids=None) -> SuperstepState:
+                         sids=None, capture_window: int = 0
+                         ) -> SuperstepState:
+    """``active0`` (B,) bool masks slots born finished (default all on);
+    ``sids`` the per-lane sampling-stream ids (default ``arange(B)``);
+    ``capture_window`` > 0 allocates the deploy re-seed capture ring."""
     b, dev = first_token.shape[0], first_token.device
     active = (torch.ones((b,), dtype=torch.bool, device=dev) if active0 is None
               else torch.as_tensor(active0, dtype=torch.bool, device=dev))
@@ -332,11 +344,21 @@ def init_superstep_state(carry: SpecCarry, first_token, *,
         active = active & (first_token != eos_id)
     sid = (torch.arange(b, dtype=torch.int32, device=dev) if sids is None
            else torch.as_tensor(sids, dtype=torch.int32, device=dev))
+    ring = {}
+    if capture_window:
+        ring = dict(
+            cap_feats=torch.zeros((b, capture_window,
+                                   carry.feats.shape[-1]),
+                                  dtype=carry.feats.dtype, device=dev),
+            cap_toks=torch.zeros((b, capture_window), dtype=torch.int32,
+                                 device=dev),
+            cap_count=torch.zeros((b,), dtype=torch.int32, device=dev))
     return SuperstepState(
         carry=carry, active=active,
         gen_count=torch.ones((b,), dtype=torch.int32, device=dev),
         accept_ema=torch.tensor(accept_ema, dtype=torch.float32, device=dev),
-        sid=sid, step_idx=torch.ones((b,), dtype=torch.int32, device=dev))
+        sid=sid, step_idx=torch.ones((b,), dtype=torch.int32, device=dev),
+        **ring)
 
 
 # ============================================== slot refill (continuous)
@@ -397,7 +419,8 @@ def refill_superstep_state(state: SuperstepState, carry_new: SpecCarry,
                            sids=None) -> SuperstepState:
     """Reset the masked slots for freshly admitted requests: carry ←
     prefill carry, gen_count ← 1, active ← alive unless the first token
-    is EOS or the budget is zero, step counter ← 1."""
+    is EOS or the budget is zero, step counter ← 1, capture ring ←
+    empty (its content is never gathered once the count is 0)."""
     carry = scatter_carry(state.carry, carry_new, mask, src)
     alive = budgets >= 1
     if eos_id is not None:
@@ -411,8 +434,34 @@ def refill_superstep_state(state: SuperstepState, carry_new: SpecCarry,
     sid = state.sid
     if sids is not None:
         sid = torch.where(mask, sids.to(torch.int32)[src_l], state.sid)
-    return state._replace(carry=carry, active=active, gen_count=gen_count,
-                          step_idx=step_idx, sid=sid)
+    repl = dict(carry=carry, active=active, gen_count=gen_count,
+                step_idx=step_idx, sid=sid)
+    if state.cap_count is not None:
+        repl["cap_count"] = torch.where(mask, torch.zeros_like(
+            state.cap_count), state.cap_count)
+    return state._replace(**repl)
+
+
+def _ring_write(st: SuperstepState):
+    """Mirror into the capture ring, in place, the pairs a speculative
+    round's ``draft_extend`` just ingested: (carry.feats[:, j],
+    carry.tokens[:, j]) for j < carry.advance, at ring slots
+    (cap_count + j) % W.  Returns the advanced count.  The window is
+    wider than the round's block (W >= gamma + 2), so a lane's slots are
+    distinct and the unwritten ones keep their value."""
+    b, w = st.cap_toks.shape
+    gp1 = st.carry.tokens.shape[1]
+    dev = st.cap_toks.device
+    j = torch.arange(gp1, device=dev)[None, :]
+    slot = (st.cap_count[:, None].long() + j) % w
+    keep = j < st.carry.advance[:, None]
+    bidx = torch.arange(b, device=dev)[:, None].expand(b, gp1)
+    feats = st.carry.feats.to(st.cap_feats.dtype)
+    st.cap_feats[bidx, slot] = torch.where(keep[..., None], feats,
+                                           st.cap_feats[bidx, slot])
+    st.cap_toks[bidx, slot] = torch.where(keep, st.carry.tokens,
+                                          st.cap_toks[bidx, slot])
+    return st.cap_count + st.carry.advance
 
 
 def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
@@ -432,7 +481,10 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
          active-mask update,
       4. packs the kept positions' training signals with the
          ``extract_pack`` kernel, straight into round k's slot of the
-         superstep's (K, ...) signal buffers.
+         superstep's (K, ...) signal buffers,
+      5. with a capture ring in the state, a speculative round mirrors
+         the pairs its draft extend ingested into it (``_ring_write``);
+         a plain round ingests nothing.
 
     A round with no active lane, and every round after it, is skipped
     (state and caches pass through, telemetry and signal slots zero).
@@ -497,6 +549,9 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                                         gamma=gamma, greedy=greedy)
         cache, carry, tokens = out["cache"], out["carry"], out["tokens"]
         n_commit, captures = out["n_commit"], out["captures"]
+        cap_count = st.cap_count
+        if cap_count is not None and use_spec:
+            cap_count = _ring_write(st)
 
         act = st.active
         n_act_f = torch.clamp(n_active.float(), min=1.0)
@@ -532,7 +587,8 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
         ys_all.append(ys)
         state = SuperstepState(
             carry, active_after, gen_new, ema, st.sid,
-            torch.where(st.active, st.step_idx + 1, st.step_idx))
+            torch.where(st.active, st.step_idx + 1, st.step_idx),
+            st.cap_feats, st.cap_toks, cap_count)
 
     rounds_out = {key: torch.stack([ys[key] for ys in ys_all])
                   for key in ys_all[0]}

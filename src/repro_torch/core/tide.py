@@ -1,25 +1,34 @@
-"""TIDE system orchestrator (paper Fig. 1), synchronous mode; port of
+"""TIDE system orchestrator (paper Fig. 1); port of
 ``repro/core/tide.py``.
 
 Wires the serving engine, the training-signal extractor, the Algorithm 1
 controller, the optional Eq. 5 drafter and the draft training service
-into the adaptive loop.  Serving and training meet at two seams:
+into the adaptive loop.  Serving and training meet at two one-way seams
+that never block serving:
 
   * **signals out**: the engine's superstep unpack pushes packed
     hidden-state windows into a bounded drop-oldest
     ``core.transport.SignalChannel``;
   * **drafts in**: ``training.service.TrainingService`` runs
     ``DraftTrainer.train_cycle`` and publishes each gate-accepted draft
-    as a versioned ``DraftVersion``, which the engine picks up through
-    its ``_poll_deploy`` before its next dispatch.
+    as a versioned ``DraftVersion`` into a lock-free slot, which the
+    engine reads through its ``_poll_deploy`` before a dispatch.
 
-``async_train=False`` (the only mode of this slice) calls
+Two training modes.  ``async_train=False`` (the default) calls
 ``service.drain()`` at request-completion boundaries, blocking and
 deterministic: a passing draft hot-swaps in mid-stream at the next
-dispatch, as in JAX's sync mode.  The asynchronous mode, with its
-background trainer and deploy-time reseed, is ROADMAP queue 1 item 2;
-the fleet (``TideConfig.fleet``) is item 7.  Both raise
-``NotImplementedError``.
+dispatch, as in JAX's sync mode.  ``async_train=True`` starts the
+service's background thread (on a CUDA card, on a stream of its own) and
+serving never waits on training: the engine polls the slot once a
+superstep (``deploy_source=service.poll``) and, with ``reseed_window``
+set, re-seeds the resident lanes' draft caches from its capture ring at
+each deploy.  The training card is ``transport.pick_training_device()``
+(None on a one-card host: the thread shares the serving card); the
+channel places signals on it, and a draft trained there is copied back
+to the engine's card before it is published.  Every control decision
+(Algorithm 1's collection gating, deploy-if-improved) is the same in
+both modes.  The fleet (``TideConfig.fleet``) is ROADMAP queue 1 item 7
+and raises ``NotImplementedError``.
 
 Serving knobs live in one ``serving.policy.ServingConfig``
 (``TideConfig(serving=...)``); the flat ``TideConfig`` fields mirror it.
@@ -35,12 +44,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterable, List, Optional
 
+from repro_torch.checkpoint import bridge
 from repro_torch.checkpoint.ckpt import DraftDeployGate
 from repro_torch.core import eagle
 from repro_torch.core.adaptive import AdaptiveDrafter, LatencyProfile
 from repro_torch.core.controller import TrainingController
 from repro_torch.core.signals import SignalExtractor
-from repro_torch.core.transport import SignalChannel
+from repro_torch.core.transport import SignalChannel, pick_training_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import ObsConfig
 from repro_torch.obs.metrics import MetricsRegistry
@@ -74,9 +84,11 @@ class TideConfig:
     train_min_steps: int = 80         # optimizer-step floor per cycle
     seed: int = 0
     # ---- training mode and channel
-    async_train: bool = False         # unported (ROADMAP queue 1 item 2)
+    async_train: bool = False         # background service vs drain at
+    #                                   completion boundaries (sync)
     channel_capacity: int = 512       # SignalChannel bound (batches)
-    reseed_window: int = 0            # async mode only (zeroed in sync)
+    reseed_window: int = 0            # >0: re-seed resident draft caches
+    #                                   at a deploy (async mode only)
     gate_arrivals: bool = False       # respect trace arrival timestamps
     prefill_chunk: int = 0            # unported (engine refuses > 0)
     # ---- paged KV cache (core/paging.py; 0 = dense per-lane caches)
@@ -93,7 +105,7 @@ class TideConfig:
     idle_wait_s: float = 0.005        # gated-arrival idle-tick bound
     spec_park_patience: int = 0       # >0: park speculation + capture
     spec_probe_interval: int = 8      # parked dispatches between probes
-    trainer_threads: int = 0          # engine refuses > 0
+    trainer_threads: int = 0          # >0: deprioritize the trainer thread
     # ---- observability: not a ServingConfig knob; the engine takes the
     #      built tracer/recorder as collaborators
     obs: Optional[ObsConfig] = None
@@ -133,10 +145,6 @@ class TideConfig:
 
 
 def _refuse(tide_cfg: TideConfig):
-    if tide_cfg.async_train:
-        raise NotImplementedError(
-            "TideConfig(async_train=True) is not ported yet (ROADMAP "
-            "queue 1 item 2: asynchronous adaptation loop)")
     if tide_cfg.fleet is not None:
         raise NotImplementedError(
             "TideConfig(fleet=...) is not ported yet (ROADMAP queue 1 "
@@ -165,12 +173,21 @@ class TideSystem:
         drafter = None
         if tide_cfg.adaptive_spec and profile is not None:
             drafter = AdaptiveDrafter(profile, gamma=tide_cfg.gamma)
+        # async mode trains on a card of its own where the host has one
+        train_device = (pick_training_device() if tide_cfg.async_train
+                        and self.device.type == "cuda" else None)
+        if train_device == self.device:
+            train_device = None
         # the channel must be able to buffer at least one cycle's worth
         # of windows, or training starves behind the drop-oldest bound
         self.channel = SignalChannel(
-            capacity=max(tide_cfg.channel_capacity, tide_cfg.n_threshold))
-        self.trainer = DraftTrainer(cfg, self.dcfg, params["embed"],
-                                    device=self.device)
+            capacity=max(tide_cfg.channel_capacity, tide_cfg.n_threshold),
+            device=train_device)
+        embed = params["embed"]
+        if train_device is not None:
+            embed = bridge.tree_to(embed, train_device)
+        self.trainer = DraftTrainer(cfg, self.dcfg, embed,
+                                    device=train_device or self.device)
         self.gate = DraftDeployGate(dparams)
         self.service = TrainingService(
             self.trainer, self.gate, self.channel,
@@ -181,6 +198,9 @@ class TideSystem:
             train_epochs=tide_cfg.train_epochs,
             train_min_steps=tide_cfg.train_min_steps,
             seed=tide_cfg.seed,
+            device=train_device,
+            publish_device=self.device if train_device is not None else None,
+            trainer_threads=tide_cfg.trainer_threads,
             engine_steps_fn=lambda: self.engine.stats.steps,
             tracer=self.tracer, registry=self.metrics)
         self.extractor = SignalExtractor(self.channel,
@@ -190,18 +210,25 @@ class TideSystem:
         # sync mode zeroes it; the system's seed draws the draft and
         # orders the trainer's batches, and the engine's would key only
         # sampling, which the engine refuses
-        scfg = dataclasses.replace(tide_cfg.serving, reseed_window=0,
-                                   seed=ServingConfig.seed)
+        scfg = dataclasses.replace(
+            tide_cfg.serving,
+            reseed_window=(tide_cfg.reseed_window if tide_cfg.async_train
+                           else 0),
+            seed=ServingConfig.seed)
         self.engine = ServingEngine(
             cfg, params, self.dcfg, dparams, config=scfg,
             policy=scfg.make_policy(drafter),
             controller=(self.controller if tide_cfg.selective_training
                         else None),
             extractor=self.extractor,
+            deploy_source=(self.service.poll if tide_cfg.async_train
+                           else None),
             tracer=self.tracer, recorder=self.recorder,
             metrics=self.metrics, device=self.device)
         # start in collection mode so the cold draft trains immediately
         self.controller.collection_enabled = True
+        if tide_cfg.async_train:
+            self.service.start()
 
     # ----------------------------------------------------------- training
     def _drain_train(self, _req=None):
@@ -215,24 +242,29 @@ class TideSystem:
     def run(self, waves: Iterable[List], max_new_tokens: int = 48
             ) -> List[Request]:
         """Serve a workload already grouped into waves of (domain,
-        prompt) pairs, training after each wave.  Returns all completed
-        requests."""
+        prompt) pairs, training after each wave in sync mode.  Returns
+        all completed requests."""
         done: List[Request] = []
+        sync = not self.tcfg.async_train
         for wave in waves:
             reqs = [Request(prompt=p, domain=d,
                             max_new_tokens=max_new_tokens)
                     for d, p in wave]
             self.engine.serve_wave(reqs)
             done.extend(reqs)
-            self._drain_train()
+            if sync:
+                self._drain_train()
         return done
 
     def run_stream(self, requests: Iterable[Request]) -> List[Request]:
-        """Serve a request stream with continuous batching, draining the
-        training service at request-completion boundaries (a passing
-        draft hot-swaps in mid-stream)."""
-        return self.engine.serve_stream(requests,
-                                        on_complete=self._drain_train)
+        """Serve a request stream with continuous batching.  Sync mode
+        drains the training service at request-completion boundaries (a
+        passing draft hot-swaps in mid-stream); async mode never waits:
+        the service trains in the background and the engine picks
+        deploys up from the slot once a superstep."""
+        on_complete = (None if self.tcfg.async_train
+                       else self._drain_train)
+        return self.engine.serve_stream(requests, on_complete=on_complete)
 
     def requests_from_trace(self, trace) -> List[Request]:
         """``data.workloads.ArrivalEvent`` records as engine requests, in
@@ -248,7 +280,8 @@ class TideSystem:
 
     # ----------------------------------------------------------- lifecycle
     def close(self):
-        """Close the training service's channel; buffered signals remain
+        """Stop the background training service (async mode) and join its
+        thread, and close its channel; buffered signals remain
         drainable.  Idempotent."""
         self.service.close()
 
@@ -256,7 +289,10 @@ class TideSystem:
         """Reset every adaptation-side component to its post-construction
         state (draft params, deploy gate, controller, channel, signal
         windows, serving stats) while keeping the engine and its
-        buffers.  Holds the service's train lock throughout."""
+        buffers.  Holds the service's train lock throughout, so a
+        background cycle in flight completes (against the pre-reset
+        gate) before anything is cleared and can never publish a stale
+        draft into the fresh run."""
         with self.service._train_lock:
             self.channel.reset()
             self.extractor.reset()
@@ -292,7 +328,7 @@ class TideSystem:
             "latency_p95_s": st.latency_p95,
             "idle_supersteps": st.idle_supersteps,
             "deploys": st.deploys,
-            "reseeds": 0,                # deploy-time reseed: item 2
+            "reseeds": st.reseeds,
             "spec_parks": self.engine.policy.speculation.parks,
             "spec_resumes": self.engine.policy.speculation.resumes,
             "train_cycles": len([e for e in self.events

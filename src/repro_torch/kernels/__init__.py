@@ -5,10 +5,25 @@ wrapper that runs the plain version on CPU tensors and the CUDA kernel
 (``csrc/<name>.cu``, built by ``kernels/build.py``) on CUDA tensors."""
 from __future__ import annotations
 
+import threading
+
 import torch
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, attr: str = "launches", n: int = 1):
+    """Add ``n`` to a wrapper's launch counter ``fn.<attr>`` under one
+    lock: in async mode the serving and the training thread both launch
+    kernels (the prefill forward), and a bare ``+=`` on a function
+    attribute can lose an increment between its read and its write.
+    Readers and resetters keep plain attribute access."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def on_cpu(*tensors) -> bool:

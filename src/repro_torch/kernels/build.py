@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -29,6 +30,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
 BUILD_SECONDS: Optional[float] = None
 
 _P = ctypes.c_void_p
@@ -119,15 +121,20 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call).  The build and
+    the load run under a lock: the serving and the training thread may
+    both make a first launch, and two builds of one process would share
+    one object directory."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIB = lib
     return _LIB
 
 

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cpu, stream_of
+from repro_torch.kernels import count, on_cpu, stream_of
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.extract_pack.ref import extract_pack_ref
 
@@ -91,7 +91,7 @@ def pack_signals(feats, tokens, mask, out=None):
         with torch.cuda.device(feats.device):
             err = library().repro_extract_pack(*args, stream_of(feats))
     check(err, "pack_signals")
-    pack_signals.launches += 1
+    count(pack_signals)
     return pf, pt, cnt
 
 

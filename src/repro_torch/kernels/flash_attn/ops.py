@@ -10,8 +10,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (HEAD_DIMS, check_pools, dtype_code,
-                                 lane_ints, on_cpu, require, stream_of)
+from repro_torch.kernels import (HEAD_DIMS, check_pools, count,
+                                 dtype_code, lane_ints, on_cpu, require,
+                                 stream_of)
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_lse_ref,
                                                 flash_attention_paged_ref,
@@ -68,7 +69,7 @@ def flash_attention(q, k, v, pad=None, *, causal: bool = True,
             out.data_ptr(), None if lse is None else lse.data_ptr(), b, s,
             hq, hk, d, int(bool(causal)), int(window), code, stream_of(q))
     check(err, "flash_attention")
-    flash_attention.launches += 1
+    count(flash_attention)
     return (out, lse) if return_lse else out
 
 
@@ -111,7 +112,7 @@ def flash_attention_paged(q, k_pool, v_pool, tbl, pad=None, *,
             tbl_t.shape[1], p, hq, hk, d, int(bool(causal)), int(window),
             code, stream_of(q))
     check(err, "flash_attention_paged")
-    flash_attention_paged.launches += 1
+    count(flash_attention_paged)
     return out
 
 
@@ -249,7 +250,7 @@ def flash_attention_bwd(q, k, v, o, do, lse):
             *(None if t is None else t.data_ptr() for t in (split, ktile, ws)),
             b, s, hq, hk, d, n_split, code, stream_of(q))
     check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    count(flash_attention_bwd)
     return dq, dk, dv
 
 

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import dtype_code, on_cpu, require, stream_of
+from repro_torch.kernels import count, dtype_code, on_cpu, require, stream_of
 from repro_torch.kernels.linear_rows.ref import linear_rows_ref
 
 # The bf16 kernel's column tile and K chunk (kLrBN, kLrBK of
@@ -82,7 +82,7 @@ def linear_rows(x, w):
             None if ws is None else ws.data_ptr(), m, n, k, splits, code,
             stream_of(x))
     check(err, "linear_rows")
-    linear_rows.launches += 1
+    count(linear_rows)
     return y
 
 

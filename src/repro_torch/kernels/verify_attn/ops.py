@@ -7,8 +7,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (HEAD_DIMS, check_pools, dtype_code,
-                                 lane_ints, on_cpu, require, stream_of)
+from repro_torch.kernels import (HEAD_DIMS, check_pools, count,
+                                 dtype_code, lane_ints, on_cpu, require,
+                                 stream_of)
 from repro_torch.kernels.verify_attn.ref import (
     verify_attention_paged_ref, verify_attention_ref,
     verify_attention_tree_paged_ref, verify_attention_tree_ref)
@@ -80,8 +81,8 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
             len_t.data_ptr(), pad_t.data_ptr(), out.data_ptr(), b, t, smax,
             hq, hk, d, int(window), width, gamma, code, stream_of(q))
     check(err, "verify_attention")
-    verify_attention.launches += 1
-    verify_attention.tree_launches += width > 0
+    count(verify_attention)
+    count(verify_attention, "tree_launches", int(width > 0))
     return out
 
 
@@ -131,8 +132,8 @@ def verify_attention_paged(q, k_pool, v_pool, tbl, lengths, pad=None, *,
             out.data_ptr(), b, t, tbl_t.shape[1], p, hq, hk, d, int(window),
             width, gamma, code, stream_of(q))
     check(err, "verify_attention_paged")
-    verify_attention_paged.launches += 1
-    verify_attention_paged.tree_launches += width > 0
+    count(verify_attention_paged)
+    count(verify_attention_paged, "tree_launches", int(width > 0))
     return out
 
 

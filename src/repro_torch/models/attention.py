@@ -143,10 +143,11 @@ def out_proj(params, o, linear=torch.matmul):
                   params["wo"].reshape(h * k, d))
 
 
-def scatter_kv(cache, new, lengths):
+def scatter_kv(cache, new, lengths, valid=None):
     """Write ``new`` (B, T, Hk, D) into ``cache`` (B, Smax, Hk, D) at
     positions lengths[b] + t, **in place** (the JAX version returns a new
-    array that XLA writes into the donated buffer).
+    array that XLA writes into the donated buffer); rows where the
+    optional (B, T) ``valid`` is False are not written.
 
     Writes past Smax are dropped, as JAX drops out-of-bounds scatter
     updates: such a row is redirected to position (p mod Smax) and
@@ -156,7 +157,8 @@ def scatter_kv(cache, new, lengths):
     b, t = new.shape[:2]
     smax = cache.shape[1]
     pos = lengths[:, None].long() + torch.arange(t, device=cache.device)[None]
-    valid = (pos < smax)[..., None, None]
+    valid = (pos < smax) if valid is None else (pos < smax) & valid
+    valid = valid[..., None, None]
     pos = pos % smax
     bidx = torch.arange(b, device=cache.device)[:, None].expand(b, t)
     rows = torch.where(valid, new.to(cache.dtype), cache[bidx, pos])
@@ -211,6 +213,25 @@ def self_attention_train(cfg: ModelConfig, params, x):
     return out_proj(params, o)
 
 
+def decode_qkv(cfg: ModelConfig, params, x, lengths, pad=None, *,
+               tree=None):
+    """The q, k, v of new tokens x (B, T, D) at cache positions
+    lengths + [0..T), RoPE'd at positions lengths - pad + t (each tree
+    slot's logical depth in place of t for ``tree=(W, γ)``).  The decode
+    attention's rows, and the draft re-seed's
+    (``eagle.reseed_draft_rows_from_ring``), come from here."""
+    t = x.shape[1]
+    q, k, v = qkv_proj(params, x)
+    offs = (torch.arange(t, device=x.device) if tree is None
+            else _tree_offsets_on(*tree, x.device))
+    rope_pos = lengths[:, None].long() + offs[None]
+    if pad is not None:
+        rope_pos = rope_pos - pad[:, None].long()
+    q = apply_rope(q, rope_pos, cfg.rope_theta)
+    k = apply_rope(k, rope_pos, cfg.rope_theta)
+    return q, k, v
+
+
 def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
                           lengths, pad=None, *, page_tbl=None, tree=None):
     """x: (B, T, D) new tokens at cache positions lengths + [0..T).
@@ -227,15 +248,7 @@ def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
     verify kernel runs its tree-causal mode."""
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                      verify_attention_paged)
-    b, t, _ = x.shape
-    q, k, v = qkv_proj(params, x)
-    offs = (torch.arange(t, device=x.device) if tree is None
-            else _tree_offsets_on(*tree, x.device))
-    rope_pos = lengths[:, None].long() + offs[None]
-    if pad is not None:
-        rope_pos = rope_pos - pad[:, None].long()
-    q = apply_rope(q, rope_pos, cfg.rope_theta)
-    k = apply_rope(k, rope_pos, cfg.rope_theta)
+    q, k, v = decode_qkv(cfg, params, x, lengths, pad, tree=tree)
     if page_tbl is None:
         scatter_kv(k_cache, k, lengths)
         scatter_kv(v_cache, v, lengths)

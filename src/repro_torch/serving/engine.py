@@ -50,12 +50,25 @@ Differences from the JAX engine:
     accepted branch is compacted through the table, and each lane
     reserves the tree's block of gamma * W + 1 rows (the chain reserves
     gamma + 1).
-  * Only this slice is ported.  Sampled decoding, chunked refill prefill
-    (and with it the paged prefix resume and the eager commit), deploy
-    re-seeding, the trainer-thread knob, preemption and load shedding
-    raise ``NotImplementedError`` naming their ROADMAP item, and so does
-    any other value of a knob that only they read (``seed``,
-    ``shed_queue_depth``).
+  * ``deploy_source``: a callable the superstep loop polls once a
+    superstep (a host attribute read, no device sync), returning the
+    training service's latest published ``DraftVersion``; a new version
+    hot-swaps ``dparams`` for the next dispatch.  The pickup records the
+    serving stream on every CUDA leaf of the new draft, whose blocks the
+    training thread's stream allocated.
+  * ``reseed_window=W`` (raised to gamma + 2): the superstep state keeps
+    a per-lane ring of the last W (feature, token) pairs the draft cache
+    ingested; at a deploy picked up in the superstep loop, one enqueued
+    op (``eagle.reseed_draft_rows_from_ring``, or its ``_paged`` form
+    through the block table) rebuilds the resident lanes' trailing draft
+    K/V under the new draft, so its acceptance gain applies at once
+    instead of at lane retirement.  The stepwise loop only swaps, as in
+    JAX.
+  * Only these slices are ported.  Sampled decoding, chunked refill
+    prefill (and with it the paged prefix resume and the eager commit),
+    preemption and load shedding raise ``NotImplementedError`` naming
+    their ROADMAP item, and so does any other value of a knob that only
+    they read (``seed``, ``shed_queue_depth``).
 """
 from __future__ import annotations
 
@@ -67,6 +80,7 @@ from typing import Callable, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import bridge
 from repro_torch.core import eagle, paging, speculative as spec
 from repro_torch.core.adaptive import AdaptiveDrafter
 from repro_torch.core.controller import Decision, TrainingController
@@ -86,7 +100,7 @@ INERT_SID = 0x7FFFFFFF
 
 _STATS_COUNTERS = (
     "tokens_out", "steps", "spec_steps", "dispatches", "refills",
-    "idle_supersteps", "deploys", "completed", "accept_len_n",
+    "idle_supersteps", "deploys", "reseeds", "completed", "accept_len_n",
     "lane_rounds", "busy_lane_rounds", "prefill_row_tokens",
     "pages_peak", "prefix_hits", "prefix_tokens_saved",
     "admission_deferrals",
@@ -216,10 +230,6 @@ def _unported(config: ServingConfig):
          "chunked refill prefill"),
         (config.commit != "cohort", f"commit={config.commit!r}", 5,
          "chunked refill prefill"),
-        (config.reseed_window > 0, "reseed_window>0", 2,
-         "overload and reseed"),
-        (config.trainer_threads > 0, "trainer_threads>0", 2,
-         "asynchronous adaptation loop"),
         (config.preempt != "none", f"preempt={config.preempt!r}", 6,
          "overload"),
         (config.shed != "none", f"shed={config.shed!r}", 6, "overload"),
@@ -301,6 +311,13 @@ class ServingEngine:
             T.tree_check(cfg)
         self.deploy_source = deploy_source
         self._deploy_seq = 0
+        # > 0: the superstep state keeps the capture ring, and a deploy
+        # picked up in the superstep loop re-seeds the resident lanes'
+        # draft cache from it
+        self.reseed_window = (max(config.reseed_window, self.gamma + 2)
+                              if config.reseed_window else 0)
+        self._reseed_fn = (self._reseed if self.reseed_window
+                           and self.superstep_rounds > 0 else None)
         self.gate_arrivals = config.gate_arrivals
         self.completion_sink = config.completion_sink
         self.idle_wait_s = config.idle_wait_s
@@ -396,16 +413,37 @@ class ServingEngine:
         self.host_syncs += out["host_syncs"]
         return out
 
+    def _reseed(self, dparams, dcache, state):
+        """Rebuild the ring-covered draft K/V rows of every lane under
+        ``dparams``, in place (dense, or through the draft cache's block
+        table), gamma + 1 columns at a time: the width of serving's draft
+        extend, so the rows are the serving rows bit for bit."""
+        ring = (state.cap_feats, state.cap_toks, state.cap_count)
+        if self.paged:
+            return eagle.reseed_draft_rows_from_ring_paged(
+                self.dcfg, dparams, self.params["embed"], dcache, *ring,
+                self.max_len, block=self.gamma + 1)
+        return eagle.reseed_draft_rows_from_ring(
+            self.dcfg, dparams, self.params["embed"], dcache, *ring,
+            block=self.gamma + 1)
+
     def _pick(self, logits):
         """Greedy token: the first maximal index, as JAX's argmax."""
         return logits.argmax(-1).to(torch.int32)
 
     # ------------------------------------------------------------- deploy
     def deploy_draft(self, dparams):
-        """Hot-swap the draft (no target reload).  Lanes resident at swap
-        time keep draft-cache K/V built by the old draft until they
-        retire; token streams stay correct (the target verifies every
-        draft)."""
+        """Hot-swap the draft (no target reload, TIDE's C2).  Under
+        ``serve_stream`` the swap lands between supersteps, mid-stream.
+
+        Caveat: without a capture ring (``reseed_window=0``), lanes
+        resident at swap time keep draft-cache K/V built by the *old*
+        draft until they retire.  Token streams stay correct (the target
+        verifies every draft), but those lanes' acceptance length may dip
+        until refilled.  With ``reseed_window>0`` the engine re-seeds
+        resident lanes' trailing draft K/V from the rolling capture ring
+        when the superstep loop picks a deploy up, so the new draft's
+        acceptance gain applies at once."""
         self.dparams = dparams
 
     def _poll_deploy(self, source=None):
@@ -418,6 +456,12 @@ class ServingEngine:
         if ver is None or ver.seq <= self._deploy_seq:
             return None
         self._deploy_seq = ver.seq
+        # the training thread's stream allocated these leaves: when this
+        # engine drops them, their blocks must wait for the serving
+        # kernels queued on this stream before the allocator reuses them
+        for t in bridge.flat(ver.dparams).values():
+            if t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
         self.dparams = ver.dparams
         self.stats.deploys += 1
         if self.tracer.enabled:
@@ -848,14 +892,23 @@ class ServingEngine:
         state = spec.init_superstep_state(
             carry, first, accept_ema=self.accept_ema, eos_id=self.eos_id,
             active0=active0, sids=self._t(self._slot_sids(reqs0),
-                                          torch.int32))
+                                          torch.int32),
+            capture_window=self.reseed_window)
         # one-superstep double buffer, as in the reference: superstep t+1
         # is dispatched before t's telemetry is unpacked; refills
         # scheduled from t's unpack enter behind t+1
         pending = None
         stall = 0
         while True:
-            self._poll_deploy()
+            # a deploy is a reference rebind; the re-seed is one enqueued
+            # op on the resident lanes' draft cache (through the current
+            # tables: a lane freed since the last ship maps only trash)
+            ver = self._poll_deploy()
+            if ver is not None and self._reseed_fn is not None:
+                cache, dcache = self._ship_tables(cache, dcache)
+                with self.tracer.span("reseed", seq=ver.seq):
+                    dcache = self._reseed_fn(self.dparams, dcache, state)
+                self.stats.reseeds += 1
             dispatched = False
             if sched.has_work():
                 cache, dcache = self._ship_tables(cache, dcache)

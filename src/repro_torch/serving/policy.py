@@ -322,12 +322,11 @@ class ServingConfig:
     the policy selection, in one dataclass (``ServingEngine(config=...)``).
 
     The fields, their names and defaults, are JAX's.  ``greedy=False``,
-    ``prefill_chunk``, ``commit``, ``preempt``, ``shed``,
-    ``reseed_window`` and ``trainer_threads`` away from their defaults
-    name paths of the JAX engine that are not ported yet, as do ``seed``
-    (it keys only sampling) and ``shed_queue_depth`` (it bounds only
-    the "queue" shed policy); the engine raises ``NotImplementedError``
-    for any of them (``_unported``)."""
+    ``prefill_chunk``, ``commit``, ``preempt`` and ``shed`` away from
+    their defaults name paths of the JAX engine that are not ported yet,
+    as do ``seed`` (it keys only sampling) and ``shed_queue_depth`` (it
+    bounds only the "queue" shed policy); the engine raises
+    ``NotImplementedError`` for any of them (``_unported``)."""
 
     # ---- engine geometry / decode
     gamma: int = 3
@@ -371,9 +370,13 @@ class ServingConfig:
     preempt: str = "none"              # none | deadline
     shed: str = "none"                 # none | expired | queue
     shed_queue_depth: int = 64
-    # ---- unported: draft re-seeding after a deploy
+    # ---- decoupled training (async mode, core/tide.py)
+    # reseed_window > 0 keeps a per-lane ring of the last W (feature,
+    # token) pairs the draft cache ingested, and re-seeds resident lanes'
+    # trailing draft K/V from it when a deploy is picked up (superstep
+    # mode; W is raised to gamma + 2).  trainer_threads > 0 lowers the
+    # background training thread's OS priority (TrainingService).
     reseed_window: int = 0
-    # ---- unported: the background trainer's thread priority
     trainer_threads: int = 0
 
     def make_policy(self, drafter=None) -> ServingPolicy:

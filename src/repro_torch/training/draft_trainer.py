@@ -25,6 +25,7 @@ import torch
 from repro_torch.checkpoint import bridge
 from repro_torch.core import eagle
 from repro_torch.core.signals import SignalBatch
+from repro_torch.core.transport import wait_ready
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamTree, unflatten
 from repro_torch.serving.engine import resolve_device
@@ -51,8 +52,16 @@ class DraftTrainer:
 
     # ---------------------------------------------------------------- data
     @staticmethod
-    def _stack(batches: List[SignalBatch]) -> Tuple[np.ndarray, np.ndarray]:
+    def _stack(batches: List[SignalBatch]) -> Tuple:
+        """Stack the windows, cut to the shortest: host arrays as numpy,
+        tensors (a ``SignalChannel`` with a ``device`` placed them) as
+        one tensor on their device, after the current stream has waited
+        for their copies (``transport.wait_ready``)."""
         s = min(b.feats.shape[0] for b in batches)
+        if isinstance(batches[0].feats, torch.Tensor):
+            wait_ready(batches)
+            return (torch.stack([b.feats[:s] for b in batches]),
+                    torch.stack([b.tokens[:s] for b in batches]))
         feats = np.stack([b.feats[:s] for b in batches])
         toks = np.stack([b.tokens[:s] for b in batches])
         return feats, toks
@@ -65,14 +74,17 @@ class DraftTrainer:
         return ((feats[:n - n_eval], toks[:n - n_eval]),
                 (feats[n - n_eval:], toks[n - n_eval:]))
 
-    def device_arrays(self, feats: np.ndarray, toks: np.ndarray):
-        """Host signals on the trainer's device: features in the draft's
-        dtype (the loss casts them to it; JAX casts inside the step),
-        tokens as int64."""
-        return (torch.from_numpy(np.ascontiguousarray(feats)).to(
-                    device=self.device, dtype=self.dcfg.act_dtype),
-                torch.from_numpy(np.ascontiguousarray(toks)).to(
-                    device=self.device, dtype=torch.int64))
+    def device_arrays(self, feats, toks):
+        """Signals on the trainer's device: features in the draft's dtype
+        (the loss casts them to it; JAX casts inside the step), tokens as
+        int64.  ``feats``/``toks`` are host arrays, or tensors already on
+        a device (a ``SignalChannel`` with a ``device``)."""
+        def tensor(x):
+            return (x if isinstance(x, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(x)))
+        return (tensor(feats).to(device=self.device,
+                                 dtype=self.dcfg.act_dtype),
+                tensor(toks).to(device=self.device, dtype=torch.int64))
 
     def trainable(self, dparams) -> Dict[str, torch.Tensor]:
         """Trainable copies of a draft's leaves on the trainer's device,

@@ -69,7 +69,6 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(greedy=False), "sampled decoding"),
-    (dict(reseed_window=4), "overload and reseed"),
     (dict(page_size=8, prefill_chunk=16), "chunked refill prefill"),
     (dict(prefill_chunk=16), "chunked refill prefill"),
     # trees over paged KV are served; with chunked refill they are not

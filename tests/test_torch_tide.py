@@ -28,7 +28,8 @@
   packages, and ``data/workloads.py`` against JAX's for a few seeds.
 * Refusals: every unported configuration raises ``NotImplementedError``
   naming its ROADMAP queue 1 item; ``TideSystem`` without ``device``
-  needs a card.
+  needs a card.  (Async mode, the service thread and the channel's
+  device are held in tests/test_torch_async.py.)
 * The config mirror: the port's ``ServingConfig`` and ``TideConfig``
   field names and defaults equal JAX's, and the flat fields mirror into
   ``serving`` as JAX's do."""
@@ -617,17 +618,15 @@ def test_requests_from_trace(tiny):
 
 # ============================================================= refusals
 @pytest.mark.parametrize("kw,item", [
-    (dict(async_train=True), "item 2"),
     (dict(fleet=object()), "item 7"),
     (dict(commit="eager"), "item 5"),
     (dict(preempt="deadline"), "item 6"),
     (dict(shed="expired"), "item 6"),
     (dict(shed="queue", shed_queue_depth=9), "item 6"),
     (dict(shed_queue_depth=9), "item 6"),
-    (dict(trainer_threads=2), "item 2"),
     (dict(greedy=False, seed=5), "item 4"),
-], ids=["async", "fleet", "commit", "preempt", "shed_expired", "shed_queue",
-        "shed_queue_depth", "trainer_threads", "sampling_seed"])
+], ids=["fleet", "commit", "preempt", "shed_expired", "shed_queue",
+        "shed_queue_depth", "sampling_seed"])
 def test_tide_unported_configs_raise(tiny, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         _port_system(tiny, **kw)
@@ -644,21 +643,6 @@ def test_tide_inert_knobs_are_accepted(tiny, kw):
     assert sys_.engine.config.reseed_window == 0
     assert sys_.engine.config.seed == 0
     assert sys_.service.seed == sys_.tcfg.seed == kw.get("seed", 0)
-
-
-def test_channel_device_and_service_thread_raise(tiny):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        transport.SignalChannel(capacity=8, device="cpu")
-    sys_ = _port_system(tiny)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        sys_.service.start()
-    assert not sys_.service.running
-    _, pt = _trainers(tiny)
-    for kw in (dict(device="cpu"), dict(publish_device="cpu"),
-               dict(trainer_threads=1)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            service.TrainingService(pt, ckpt.DraftDeployGate(tiny["tdp"]),
-                                    transport.SignalChannel(8), **kw)
 
 
 def test_tide_without_device_needs_a_card(tiny, monkeypatch):
