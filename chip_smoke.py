@@ -52,15 +52,47 @@ Phases, one JSON line each:
            w's rows exactly; its time against torch.matmul (which is
            also its plain version) at M 3968 and 128.
            flash_attention_bwd, the backward of the prefill attention
-           (no Pallas twin: the draft's training step), at the glm4-9b
-           draft's training shape, q (8, S, 32, 128) and k/v
-           (8, S, 2, 128) bf16, S 62 (the train phase's 63-token window
-           less its last token) and 512: each gradient against its
+           (no Pallas twin: the draft's and the target's training
+           steps), at the glm4-9b training shape, q (8, S, 32, 128) and
+           k/v (8, S, 2, 128) bf16, S 62 (the train phase's 63-token
+           window less its last token), 512, 64 and 47 (the launch
+           phase's target steps): each gradient against its
            plain version (float64) as above, equal across two calls
            (equal_twice), the forward that stores the LSE equal bit for
            bit to the serving forward (lse_forward_equal), and its time
            against the autograd backward of
            scaled_dot_product_attention(is_causal=True, enable_gqa=True).
+  launch   the port's entry points (src/repro_torch/launch) at glm4-9b's
+           full width and depth, in a process of its own
+           (chip_smoke.py --launch) run before any engine is built, one
+           line per step.  train: the launch/train twin's loop
+           (launch.train.train: batch 8, seq 64, Adafactor at LAUNCH_LR,
+           LAUNCH_TRAIN_STEPS steps on random weights from seed 0): step
+           ms (the first apart) and the optimizer update's share of it
+           (the host clock around the update, synchronized before and
+           after), losses, peak memory, launches per step
+           of the prefill kernel and of flash_attention_bwd (asserted 40
+           and 40: one each a layer), the loss finite and the mean of the
+           last 3 below the first.  pretrain: pretrain_target on the
+           serve CLI's corpus (launch.serve.serve_corpus: 128 rows of 48
+           tokens) with Adafactor at PRETRAIN_LR, PRETRAIN_STEPS steps,
+           asserted as train.  profile: launch.serve.measure_profile, the
+           paper's startup profiling pass (T(n) of one target decode step
+           for n = 1..16 lanes, D0 of one draft step), its c(b), beta(b,
+           gamma) and Eq. 5 threshold table, every value finite and > 0.
+           serve_a: launch.serve.serve with the CLI's configuration
+           (waves of 4, gamma 3, K 8, 32 new tokens, a train cycle per 4
+           windows of 16, sync mode) and --no-adaptive on the pretrained
+           target: cycles and their events, deploys, the accepted-length
+           trend of the first and last quarter of the rounds, tokens/s,
+           launches (verify at T = 1 and T = 4), peak memory; every
+           request finishes with its budget, no trainer failure, at
+           least one cycle.  serve_b: the same requests with the Eq. 5
+           gate on the measured profile, --spec-park 2, from serve A's
+           last draft, traced (--trace-out chiprun_out/): spec rounds
+           against all, parks, probes and resumes, launches; its streams
+           must equal serve A's, or depart only where the target's top-2
+           logit gap is within BF16_TOL of its top logit.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
            streams, dense and paged (page 16), tree speculation at
@@ -186,7 +218,8 @@ Phases, one JSON line each:
 
 Then the kernel table (``{"kernels": [...]}``: nine rows, each with its
 launch count from the main-path serve (or, for flash_attention_bwd, the
-train phase) that runs it and its ms,
+train phase) that runs it, the launch phase's count
+(launch_phase_launches) and its ms,
 device_ms and host_ms), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
@@ -225,6 +258,9 @@ TIDE_STEPS = TRAIN_STEPS // 2
 
 
 T_START = time.perf_counter()
+# what a run writes beside its output lines (git-ignored)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
 
 
 def emit(obj):
@@ -520,6 +556,7 @@ def phase_kernels():
         shape=f"q {tuple(q.shape)} pools {tuple(kpool.shape)} bf16, pad>0"))
 
     rows += _tree_rows(rnd, kc, vc, pad, kpool, vpool, table)
+    launch_cases = _launch_serve_cases(rnd, g)
 
     # ---- extract_pack (exact), called as decode_superstep calls it: into
     # one slot of a superstep's (K, B, T, F) signal buffers
@@ -559,6 +596,12 @@ def phase_kernels():
               f"slot 3 of {tuple(bufs[0].shape)}"))
     rows.append(_linear_rows_row(g))
     rows.append(_flash_bwd_row(g))
+    for row in rows:
+        got = launch_cases.get(row["name"])
+        if got:
+            row["launch_serve_cases"] = got
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     *(c["max_abs_err"] for c in got))
     # every device time after every event and host time (obs/timing.py)
     from repro_torch.obs.timing import device_ms, resolve
     rows = resolve(rows)
@@ -571,6 +614,69 @@ def phase_kernels():
     emit({"phase": "kernels", "profiler_retries": device_ms.retries,
           "kernels": rows})
     return rows
+
+
+# the launch phase's serve (the serve CLI's configuration): batch 4,
+# max_len 96 (one and a half 64-key tiles), prompts of 12-23 tokens
+# refilled at a width of 24
+LAUNCH_SERVE = dict(B=4, SMAX=96, S=24)
+
+
+def _launch_serve_cases(rnd, g) -> dict:
+    """The kernels at the launch phase's serve shapes, each held against
+    its plain version: the prefill at batch 4, width 24 with left pads;
+    verify_attention at T 4 and 1 against a cache of 96 rows, lengths up
+    to its end; extract_pack into a (4, 4, F) slot.  Returns
+    {kernel name: [case, ...]}."""
+    from repro_torch.kernels.extract_pack.ops import pack_signals
+    from repro_torch.kernels.extract_pack.ref import extract_pack_ref
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.verify_attn.ops import verify_attention
+    from repro_torch.kernels.verify_attn.ref import verify_attention_ref
+    dev = torch.device("cuda")
+    B, SMAX, S = (LAUNCH_SERVE[k] for k in ("B", "SMAX", "S"))
+    HQ, HK, D = GLM["HQ"], GLM["HK"], GLM["D"]
+    pad = torch.tensor([1, 5, 9, 12], dtype=torch.int32, device=dev)
+    q, k, v = rnd(B, S, HQ, D), rnd(B, S, HK, D), rnd(B, S, HK, D)
+    out = flash_attention(q, k, v, pad)
+    ref = flash_attention_ref(q, k, v, pad)
+    torch.cuda.synchronize()
+    valid = torch.arange(S, device=dev)[None, :] >= pad[:, None]
+    err, rel = hold(out[valid], ref[valid], "flash_attention B=4 S=24")
+    assert not out[~valid].any(), "rows before pad must be zeros"
+    got = {"flash_attention": [dict(
+        shape=f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16, pad "
+              f"{pad.tolist()}", max_abs_err=err, rel_l2_err=rel)]}
+    kc, vc = rnd(B, SMAX, HK, D), rnd(B, SMAX, HK, D)
+    vcases = []
+    for t, lengths in ((4, [20, 57, 88, 92]), (1, [24, 60, 90, 95])):
+        qt = rnd(B, t, HQ, D)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        o = verify_attention(qt, kc, vc, ln, pad)
+        r = verify_attention_ref(qt, kc, vc, ln, pad)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o).all(), "verify_attention wrote non-finite"
+        e, rel_t = hold(o, r, f"verify_attention B=4 T={t} Smax=96")
+        vcases.append(dict(T=t, lengths=lengths, shape=f"q {tuple(qt.shape)} "
+                           f"cache {tuple(kc.shape)} bf16",
+                           max_abs_err=e, rel_l2_err=rel_t))
+    got["verify_attention"] = vcases
+    T4 = GLM["GAMMA"] + 1
+    feats = rnd(B, T4, GLM["F"])
+    toks = torch.randint(0, 151552, (B, T4), generator=g, device=dev,
+                         dtype=torch.int32)
+    msk = torch.rand((B, T4), generator=g, device=dev) < 0.6
+    slot = (torch.zeros_like(feats), torch.zeros_like(toks),
+            torch.zeros((B,), dtype=torch.int32, device=dev))
+    pack_signals(feats, toks, msk, out=slot)
+    torch.cuda.synchronize()
+    for s_, w in zip(slot, extract_pack_ref(feats, toks, msk)):
+        assert torch.equal(s_, w), "extract_pack B=4 is not exact"
+    got["extract_pack"] = [dict(shape=f"feats {tuple(feats.shape)} bf16, "
+                                f"{int(msk.sum())} rows kept",
+                                max_abs_err=0.0)]
+    return got
 
 
 def phase_kernels_apart():
@@ -587,6 +693,303 @@ def phase_kernels_apart():
     return line["kernels"]
 
 
+# ------------------------------------------------------------- launch
+# the launch phase's target training: steps of the launch/train twin
+# (batch 8 and seq 64, the CLI's defaults) and of pretrain_target on the
+# serve CLI's corpus, both with Adafactor (AdamW's fp32 moments for 9.40 B
+# parameters are ~75 GB) at lr 1e-4: at the CLI's 1e-3 the loss rises
+# after 3 steps (12.31 to 14.37 in 12), and of 1e-4, 2e-4, 3e-4 and 5e-4
+# 1e-4 lowered it most in 12 steps (scripts/launch_lr.py on an H100)
+LAUNCH_TRAIN_STEPS = 12
+LAUNCH_LR = 1e-4
+PRETRAIN_STEPS = 40
+PRETRAIN_LR = 1e-4
+# the CLI's serve: requests (waves of --batch 4, 32 new tokens each)
+LAUNCH_REQUESTS = 16
+
+
+def _launch_counts(fns) -> dict:
+    out = {name: fn.launches for name, fn in fns.items()}
+    out["verify_attention_t1"] = fns["verify_attention"].t1_launches
+    out["verify_attention_tree"] = fns["verify_attention"].tree_launches
+    out["verify_attention_t4"] = (out["verify_attention"]
+                                  - out["verify_attention_t1"]
+                                  - out["verify_attention_tree"])
+    return out
+
+
+def _zero_counts(fns):
+    for fn in fns.values():
+        fn.launches = 0
+        for attr in ("tree_launches", "t1_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _free():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_update(opt):
+    """``opt`` with each update timed apart from the forward and backward
+    before it (synchronized on both sides).  Returns (optimizer, update
+    ms, host time at each update's end)."""
+    update_ms, ends = [], []
+
+    def update(*a):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = opt.update(*a)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        update_ms.append((ends[-1] - s) * 1e3)
+        return out
+
+    return opt._replace(update=update), update_ms, ends
+
+
+def _serve_row(sys_, done, wall_s, counts, args):
+    from repro_torch.launch import serve as S
+    s = sys_.summary()
+    first, last = S.accept_trend(sys_)
+    events = [{k: e.get(k) for k in ("eval_acc", "train_acc", "baseline",
+                                     "deployed", "steps", "seconds",
+                                     "engine_steps")}
+              for e in sys_.events if e["kind"] == "train_cycle"]
+    return {"requests": len(done), "batch": args.batch,
+            "gamma": args.gamma, "max_new_tokens": args.max_new_tokens,
+            "adaptive": not args.no_adaptive, "spec_park": args.spec_park,
+            "wall_s": wall_s, "tokens_per_s": s["throughput_tok_s"],
+            "steps": s["steps"], "spec_steps": s["spec_steps"],
+            "accept_len": s["accept_len"],
+            "accept_len_trend": [first, last],
+            "cycles": len(events), "events": events,
+            "deploys": s["deploys"], "deployed": s["deployed"],
+            "spec_parks": s["spec_parks"],
+            "spec_resumes": s["spec_resumes"],
+            "signals_collected": s["signals_collected"],
+            "trainer_failures": s["trainer_failures"],
+            "trainer_last_error": sys_.service.last_error,
+            "launches": counts,
+            "max_memory_allocated_GB":
+                torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_launch(arch: str = "glm4-9b", device: str = "cuda"):
+    """The port's entry points at ``arch``'s full width and depth, in a
+    process of its own (``chip_smoke.py --launch``): the launch/train
+    twin, pretrain_target, the startup profiling pass and two serves
+    through the serve CLI's pieces.  One JSON line per step; the CLIs'
+    own printed lines go to the parent's stderr."""
+    import math
+
+    from repro_torch.configs import get
+    from repro_torch.core import eagle
+    from repro_torch.core.adaptive import accept_threshold_table
+    from repro_torch.core.tide import TideConfig
+    from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
+    from repro_torch.launch import serve as S
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adafactor
+    from repro_torch.training.trainer import pretrain_target
+    cfg = get(arch)
+    dev = torch.device(device)
+    fns = dict(_kernel_fns(), flash_attention_bwd=flash_attention_bwd)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # 1. launch_train: the launch/train twin at full width
+    args = TR.build_parser().parse_args(
+        ["--arch", cfg.name, "--steps", str(LAUNCH_TRAIN_STEPS),
+         "--optimizer", "adafactor", "--lr", str(LAUNCH_LR)])
+    t0 = time.perf_counter()
+    params = T.init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt, update_ms, _ = _timed_update(adafactor(lr=args.lr))
+    _zero_counts(fns)
+    log = TR.train(cfg, params, args, device=dev, opt=opt)
+    torch.cuda.synchronize()
+    counts = _launch_counts(fns)
+    add(counts)
+    losses = [e["loss"] for e in log]
+    steps = len(log)
+    row = {"phase": "launch", "step": "train", "model": cfg.name,
+           "layers": cfg.num_layers,
+           "params_B": round(cfg.param_count() / 1e9, 3),
+           "batch": args.batch, "seq": args.seq, "lr": args.lr,
+           "optimizer": args.optimizer, "steps": steps, "init_s": init_s,
+           "step_ms_first": log[0]["ms"],
+           "step_ms_median_rest": statistics.median(
+               e["ms"] for e in log[1:]),
+           "update_ms_median_rest": statistics.median(update_ms[1:]),
+           "losses": losses, "accuracy": [e["accuracy"] for e in log],
+           "grad_norm": [e["grad_norm"] for e in log],
+           "max_memory_allocated_GB":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "flash_attention_per_step": counts["flash_attention"] / steps,
+           "flash_attention_bwd_per_step":
+               counts["flash_attention_bwd"] / steps,
+           "launches": counts, "nvidia_smi": smi()}
+    emit(row)
+    assert all(math.isfinite(x) for x in losses), "non-finite loss"
+    assert statistics.mean(losses[-3:]) < losses[0], "the loss did not fall"
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == cfg.num_layers * steps, counts
+    del params, log
+    _free()
+
+    # 2. pretrain: the serve CLI's target, pretrained on its corpus
+    params = T.init(cfg, 0, device=dev)
+    domains, corpus = S.serve_corpus(cfg)
+    opt, _, ends = _timed_update(adafactor(lr=PRETRAIN_LR))
+    _zero_counts(fns)
+    t0 = time.perf_counter()
+    params, losses = pretrain_target(cfg, params, corpus,
+                                     steps=PRETRAIN_STEPS, opt=opt)
+    torch.cuda.synchronize()
+    # a step ends with its update (the first one's time includes the
+    # optimizer's init)
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + ends, ends)]
+    counts = _launch_counts(fns)
+    add(counts)
+    row = {"phase": "launch", "step": "pretrain", "steps": PRETRAIN_STEPS,
+           "batch": 8, "seq": corpus.shape[1] - 1, "optimizer": "adafactor",
+           "lr": PRETRAIN_LR, "corpus_rows": corpus.shape[0],
+           "losses": losses, "step_ms_first": step_ms[0],
+           "step_ms_median_rest": statistics.median(step_ms[1:]),
+           "max_memory_allocated_GB":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    emit(row)
+    assert all(math.isfinite(x) for x in losses), "non-finite loss"
+    assert statistics.mean(losses[-3:]) < losses[0], "the loss did not fall"
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == cfg.num_layers * PRETRAIN_STEPS, counts
+    _free()
+
+    # 3. the startup profiling pass, on the pretrained target and the
+    # serve's untrained draft
+    args_a = S.build_parser().parse_args(
+        ["--arch", cfg.name, "--requests", str(LAUNCH_REQUESTS),
+         "--no-adaptive"])
+    args_a.continuous = False
+    dcfg = eagle.draft_config(cfg)
+    dparams = eagle.draft_init(dcfg, TideConfig.seed + 7, device=dev)
+    sizes = S.profile_batch_sizes(args_a.batch, args_a.gamma)
+    t0 = time.perf_counter()
+    profile = S.measure_profile(cfg, params, dcfg, dparams, sizes, dev,
+                                max_len=S.config_from_args(args_a).max_len,
+                                draft_batch=args_a.batch)
+    prof_s = time.perf_counter() - t0
+    g = args_a.gamma
+    table = accept_threshold_table(profile, g, args_a.batch).tolist()
+    row = {"phase": "launch", "step": "profile", "batch_sizes": sizes,
+           "t_ms": profile.t_ms, "d0_ms": profile.d0_ms,
+           "c": {b: profile.c(b) for b in range(1, args_a.batch + 1)},
+           "beta": {b: profile.beta(b, g)
+                    for b in range(1, args_a.batch + 1)},
+           "threshold_table": table, "seconds": prof_s}
+    emit(row)
+    vals = list(profile.t_ms) + [profile.d0_ms] + list(row["c"].values()) \
+        + list(row["beta"].values()) + table[1:]
+    assert all(math.isfinite(v) and v > 0 for v in vals), row
+
+    # 4. serve A: the CLI's configuration with --no-adaptive (TIDE-default)
+    _zero_counts(fns)
+    sys_a, done_a, wall_a = S.serve(args_a, cfg, params, None, domains,
+                                    device=dev, dparams=dparams)
+    torch.cuda.synchronize()
+    S.report(args_a, sys_a, wall_a)
+    counts = _launch_counts(fns)
+    add(counts)
+    row = {"phase": "launch", "step": "serve_a",
+           **_serve_row(sys_a, done_a, wall_a, counts, args_a),
+           "nvidia_smi": smi()}
+    emit(row)
+    streams_a = [list(r.generated) for r in done_a]
+    assert len(done_a) == LAUNCH_REQUESTS and all(
+        r.finish_t is not None and len(r.generated) == args_a.max_new_tokens
+        for r in done_a), "a request did not finish with its budget"
+    assert row["trainer_failures"] == 0, row["trainer_last_error"]
+    assert row["cycles"] >= 1, "no train cycle ran"
+    assert row["cycles"] == sys_a.service.cycles, row
+    for name in ("flash_attention", "verify_attention", "extract_pack",
+                 "linear_rows", "flash_attention_bwd"):
+        assert counts[name] > 0, (name, counts)
+    draft_a, _ = sys_a.gate.current()
+    del sys_a, done_a
+    _free()
+
+    # 5. serve B: the same requests with the Eq. 5 gate on the measured
+    # profile, parking after 2 gated-off rounds, from serve A's draft
+    args_b = S.build_parser().parse_args(
+        ["--arch", cfg.name, "--requests", str(LAUNCH_REQUESTS),
+         "--spec-park", "2", "--trace-out",
+         os.path.join(OUT_DIR, "launch_serve_b_trace.json")])
+    args_b.continuous = False
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _zero_counts(fns)
+    sys_b, done_b, wall_b = S.serve(args_b, cfg, params, profile, domains,
+                                    device=dev, dparams=draft_a)
+    torch.cuda.synchronize()
+    S.report(args_b, sys_b, wall_b)
+    counts = _launch_counts(fns)
+    add(counts)
+    streams_b = [list(r.generated) for r in done_b]
+    flips = _flips(sys_b.engine, done_b, streams_b, streams_a)
+    tl = sys_b.engine.stats.timeline
+    row = {"phase": "launch", "step": "serve_b",
+           **_serve_row(sys_b, done_b, wall_b, counts, args_b),
+           "probes": sum(1 for e in sys_b.tracer.events()
+                         if e[1] == "spec.probe"),
+           "spec_rounds_first_last_quarter": [
+               sum(x["spec"] for x in tl[:max(len(tl) // 4, 1)]),
+               sum(x["spec"] for x in tl[-max(len(tl) // 4, 1):])],
+           "streams_equal_serve_a": streams_b == streams_a,
+           "streams_differing": len(flips), "flips": flips,
+           "nvidia_smi": smi()}
+    emit(row)
+    assert len(done_b) == LAUNCH_REQUESTS and all(
+        len(r.generated) == args_b.max_new_tokens for r in done_b)
+    assert row["trainer_failures"] == 0, row["trainer_last_error"]
+    for f in flips:
+        assert f["top2_logit_gap"] <= BF16_TOL * abs(f["top_logit"]), \
+            f"serve B departs from serve A at no near-tie: {f}"
+    del sys_b, done_b, params, draft_a
+    _free()
+    emit({"phase": "launch", "step": "total", "launches": total})
+
+
+def phase_launch_apart():
+    """The launch phase in a process of its own (``chip_smoke.py
+    --launch``), run before the parent makes any engine: no profiler
+    residue on its times, and the card's whole memory for a full-width
+    training step.  Forwards its JSON lines, sends its other lines
+    (the CLIs' own prints) to stderr, and returns its launches."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--launch"], stdout=subprocess.PIPE,
+                          timeout=600, check=True)
+    total = None
+    for line in proc.stdout.decode().splitlines():
+        if not line.startswith("{"):
+            print(line, file=sys.stderr)
+            continue
+        row = json.loads(line)
+        if row.get("step") == "total":
+            total = row["launches"]
+        emit(row)
+    return total
+
+
 # the pad-shift placements (repro_torch.obs.cobatch.placed_rows) each
 # kernel row is held to; extract_pack and linear_rows have no pad
 SHIFT_KINDS_OF = {
@@ -601,7 +1004,9 @@ SHIFT_KINDS_OF = {
 LINEAR_KN = (("k_proj", 4096, 256), ("q_proj/o_proj", 4096, 4096),
              ("ffn_up/gate", 4096, 13696), ("ffn_down", 13696, 4096),
              ("lm_head", 4096, 151552))
-LINEAR_M = (1, 2, 63, 64, 65, 126, 127, 128, 129, 992, 3968)
+# (4, 16 and 96: the launch phase's serve, batch 4 at T 1 and 4 and its
+# refill of 4 x 24)
+LINEAR_M = (1, 2, 4, 16, 63, 64, 65, 96, 126, 127, 128, 129, 992, 3968)
 
 
 def _linear_rows_row(g):
@@ -691,8 +1096,10 @@ def _sdpa_bwd(q, k, v, do):
 
 
 def _flash_bwd_row(g):
-    """flash_attention_bwd at the glm4-9b draft's training shape (batch 8,
-    32/2 heads, D 128, bf16) at S 62 (the train phase's) and 512: each
+    """flash_attention_bwd at the glm4-9b training shapes (batch 8, 32/2
+    heads, D 128, bf16: the draft's and the target's) at S 62 (the train
+    phase's), 512, 64 and 47 (the launch phase's target steps, launch/train
+    and pretrain_target): each
     gradient held against its plain version, two calls equal, a lane's
     gradients equal alone and as lanes 0 and 5 of the batch, the
     LSE-storing forward equal to the serving forward; the error of a
@@ -711,7 +1118,7 @@ def _flash_bwd_row(g):
     dev = torch.device("cuda")
     B, HQ, HK, D = (GLM[k] for k in ("B", "HQ", "HK", "D"))
     cases = []
-    for s in (GLM["TRAIN_WINDOW"] - 1, GLM["S"]):
+    for s in (GLM["TRAIN_WINDOW"] - 1, GLM["S"], 64, 47):
         q, do = (torch.randn((B, s, HQ, D), generator=g, device=dev)
                  .to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn((B, s, HK, D), generator=g, device=dev)
@@ -1201,19 +1608,26 @@ def phase_serve():
     return launches, eng, summary, [list(r.generated) for r in reqs], signals
 
 
-def _first_flip(eng, reqs, streams, ref_streams):
-    """The first request whose stream differs from ``ref_streams``, the
-    step where it flips, and the target's top-2 logit gap there: one
-    prefill of prompt + the common prefix."""
+def _flips(eng, reqs, streams, ref_streams):
+    """Every request whose stream differs from ``ref_streams``: the step
+    where it first departs, and the target's top-2 logit gap there beside
+    its top logit (one prefill of prompt + the common prefix)."""
     from repro_torch.models import transformer as T
-    i = next(n for n, (a, b) in enumerate(zip(streams, ref_streams))
-             if a != b)
-    a, b = streams[i], ref_streams[i]
-    j = next(n for n in range(len(a)) if a[n] != b[n])
-    seq = torch.tensor([reqs[i].prompt + b[:j]], dtype=torch.int32,
-                       device=eng.device)
-    top = T.prefill(eng.cfg, eng.params, seq)["logits"][0].topk(2).values
-    return {"request": i, "step": j, "top2_logit_gap": float(top[0] - top[1])}
+    out = []
+    for i, (a, b) in enumerate(zip(streams, ref_streams)):
+        if a == b:
+            continue
+        j = next((n for n in range(min(len(a), len(b))) if a[n] != b[n]),
+                 min(len(a), len(b)))
+        seq = torch.tensor([list(reqs[i].prompt) + list(b[:j])],
+                           dtype=torch.int32, device=eng.device)
+        with torch.no_grad():
+            top = T.prefill(eng.cfg, eng.params,
+                            seq)["logits"][0].topk(2).values
+        out.append({"request": i, "step": j,
+                    "top2_logit_gap": float(top[0] - top[1]),
+                    "top_logit": float(top[0])})
+    return out
 
 
 def phase_cobatch(eng):
@@ -1303,8 +1717,8 @@ def phase_paged_serve(dense_eng, dense, dense_streams, blocking):
               "streams_equal_dense": streams == dense_streams,
               "requests_equal_dense": sum(
                   a == b for a, b in zip(streams, dense_streams)),
-              **({"first_flip": _first_flip(eng, reqs, streams,
-                                            dense_streams)}
+              **({"first_flip": _flips(eng, reqs, streams,
+                                       dense_streams)[0]}
                  if streams != dense_streams else {}),
               "host_syncs_per_superstep_dense":
                   dense["host_syncs_per_superstep"],
@@ -1383,8 +1797,8 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
             assert summary["host_syncs_per_superstep"] <= \
                 dense["host_syncs_per_superstep"], "tree serve syncs more"
             if diff:
-                row["first_flip"] = _first_flip(eng, reqs, streams,
-                                                dense_streams)
+                row["first_flip"] = _flips(eng, reqs, streams,
+                                           dense_streams)[0]
         out[width] = (launches, streams)
         emit(row)
         profile_against(eng, f"tree W={width}", blocking)
@@ -1461,8 +1875,8 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
                "note": "random weights: mean accepted length ~1.0",
                "nvidia_smi": smi()}
         if streams != tree_streams[width]:
-            row["first_flip_vs_dense_tree"] = _first_flip(
-                eng, reqs, streams, tree_streams[width])
+            row["first_flip_vs_dense_tree"] = _flips(
+                eng, reqs, streams, tree_streams[width])[0]
         emit(row)
         # at 256 pages the guard defers, so prompts meet other refill
         # batches; no prefill op departs with its batch (cobatch)
@@ -2121,6 +2535,7 @@ def profile_against(eng, which, blocking):
 def main():
     phase_env()
     rows = phase_kernels_apart()
+    launch = phase_launch_apart()
     phase_ladder()
     launches, eng, dense, dense_streams, signals = phase_serve()
     phase_cobatch(eng)
@@ -2149,11 +2564,12 @@ def main():
     del model
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launch_phase_launches"] = launch.get(row["name"], 0)
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}
+        "library_ms", "launch_phase_launches")}
         for row in rows]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2165,5 +2581,8 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--kernels"]:
         _use_checkout()
         phase_kernels()
+    elif sys.argv[1:] == ["--launch"]:
+        _use_checkout()
+        phase_launch()
     else:
         main()

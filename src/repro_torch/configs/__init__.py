@@ -18,8 +18,8 @@ def _module(name: str):
     key = _ALIASES.get(name, name.replace("-", "_"))
     if key not in ARCHS:
         raise NotImplementedError(
-            f"config {name!r} is not ported yet (ROADMAP queue 1: "
-            "other model families)")
+            f"config {name!r} is not ported yet (ROADMAP queue 1 "
+            "item 8: other model families)")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -45,7 +45,9 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
     ``csrc/verify_attn.cu`` in either mode, on the loop
     ``verify_route`` names, or raise.
     ``verify_attention.launches`` counts the kernel launches,
-    ``verify_attention.tree_launches`` those in tree mode."""
+    ``verify_attention.tree_launches`` those in tree mode and
+    ``verify_attention.t1_launches`` those of one query row (plain
+    decode, draft propose)."""
     width, gamma = _tree(tree, q.shape[1])
     if on_cpu(q, k_cache, v_cache, lengths):
         if width:
@@ -83,11 +85,13 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
     check(err, "verify_attention")
     count(verify_attention)
     count(verify_attention, "tree_launches", int(width > 0))
+    count(verify_attention, "t1_launches", int(t == 1))
     return out
 
 
 verify_attention.launches = 0
 verify_attention.tree_launches = 0
+verify_attention.t1_launches = 0
 
 
 def verify_attention_paged(q, k_pool, v_pool, tbl, lengths, pad=None, *,

@@ -34,8 +34,8 @@ def ffn_specs(cfg: ModelConfig, kind: str, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
     if kind != FFN_SWIGLU:
         raise NotImplementedError(
-            f"FFN {kind!r} is not ported yet (ROADMAP queue 1: "
-            "other model families)")
+            f"FFN {kind!r} is not ported yet (ROADMAP queue 1 "
+            "item 8: other model families)")
     return {
         "w_gate": ParamSpec((d, f), (EMBED, MLP)),
         "w_up": ParamSpec((d, f), (EMBED, MLP)),
@@ -47,7 +47,8 @@ def ffn(params, x, kind: str = FFN_SWIGLU, linear=torch.matmul):
     """SwiGLU; ``linear`` computes its three matrix products."""
     if kind != FFN_SWIGLU:
         raise NotImplementedError(
-            f"FFN {kind!r} is not ported yet (ROADMAP queue 1: other model families)")
+            f"FFN {kind!r} is not ported yet (ROADMAP queue 1 "
+            "item 8: other model families)")
     g = linear(x, params["w_gate"])
     u = linear(x, params["w_up"])
     return linear(F.silu(g) * u, params["w_down"])

@@ -17,7 +17,8 @@ straight into the pools (no dense K/V is built).
 
 Entry points: ``param_specs`` / ``init``, ``prefill``, ``decode_step``
 (chain or draft tree), ``commit_cache``, ``init_cache``, ``paged_check``,
-``tree_check``.  Only attention mixers
+``tree_check``, and ``forward_train`` (the teacher-forced loss of the
+target trainer, ``training/trainer.py``).  Only attention mixers
 with the SwiGLU FFN are ported; other block kinds raise
 ``NotImplementedError``.
 """
@@ -26,7 +27,9 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.checkpoint import bridge
 from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.models import attention as attn
 from repro_torch.models.config import (ATTN, ATTN_SW, FFN_SWIGLU, BlockDef,
@@ -43,7 +46,7 @@ def _check_block(blk: BlockDef):
     if blk.mixer not in (ATTN, ATTN_SW) or blk.ffn != FFN_SWIGLU or blk.cross:
         raise NotImplementedError(
             f"block {blk} is not ported yet: the port runs attention "
-            "mixers with the SwiGLU FFN (ROADMAP queue 1: other "
+            "mixers with the SwiGLU FFN (ROADMAP queue 1 item 8: other "
             "model families)")
 
 
@@ -65,7 +68,7 @@ def model_groups(cfg: ModelConfig) -> List[Tuple[str, Tuple[BlockDef, ...], int]
     if cfg.prologue or cfg.encoder_layers or cfg.num_image_tokens:
         raise NotImplementedError(
             f"{cfg.name}: prologue/encoder/image groups are not ported yet "
-            "(ROADMAP queue 1: other model families)")
+            "(ROADMAP queue 1 item 8: other model families)")
     for blk in cfg.pattern:
         _check_block(blk)
     return [("body", cfg.pattern, cfg.num_pattern_repeats)]
@@ -98,6 +101,17 @@ def _slices(group, repeats: int, pi: int):
             for i in range(repeats)]
 
 
+def _train_slices(group, repeats: int, pi: int):
+    """``_slices`` for a training forward: every stacked leaf unbound
+    once, so that its gradient is one stacked tensor made by a single
+    ``unbind`` backward (indexing ``v[i]`` would make each layer's
+    backward allocate a zero tensor of the whole leaf)."""
+    parts = {k: v.unbind(0)
+             for k, v in bridge.flat(group[f"pos{pi}"]).items()}
+    return [unflatten({k: u[i] for k, u in parts.items()})
+            for i in range(repeats)]
+
+
 # ============================================================== layer apply
 def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad, pools=None,
                         tbl_rows=None, *, linear):
@@ -123,6 +137,17 @@ def apply_layer_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths,
                                         lengths, pad, page_tbl=page_tbl,
                                         tree=tree)
     x = x + out
+    h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + ffn(p["ffn"], h2)
+
+
+def apply_layer_train(cfg: ModelConfig, p, x):
+    """One layer of the training forward: causal over positions [0, S),
+    products through ``torch.matmul``, the attention through
+    ``attention.self_attention_train`` (the prefill kernel storing its
+    LSE, its gradient the backward kernel)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + attn.self_attention_train(cfg, p["mix"], h)
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + ffn(p["ffn"], h2)
 
@@ -283,6 +308,48 @@ def commit_cache(cfg: ModelConfig, cache, n_accept):
     new = dict(cache)
     new["lengths"] = cache["lengths"] + n_accept.to(torch.int32)
     return new
+
+
+# ================================================================= training
+def forward_train(cfg: ModelConfig, params, batch, *, moe_impl: str = "sort",
+                  remat: bool = True):
+    """Teacher-forced LM loss (JAX ``models/transformer.py:428``).  batch:
+    {"tokens" (B, S), "targets" (B, S)} integer tensors; a target < 0 is
+    masked out of the loss and the accuracy.  ``params``: a ``ParamTree``
+    or a nested dict of tensors (a trainer's leaves that require grad).
+    ``remat=True`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as JAX's
+    ``jax.checkpoint`` does.  ``moe_impl`` is JAX's signature: the port
+    runs no MoE block.  Returns (loss, {"ce", "aux", "accuracy"}), 0-dim
+    fp32 tensors; ``aux`` is 0 (no MoE balance loss), the accuracy
+    detached."""
+    del moe_impl
+    tokens, targets = batch["tokens"], batch["targets"].long()
+    x = embed(params["embed"], tokens, cfg.act_dtype)
+    for name, pattern, repeats in model_groups(cfg):
+        per_pos = [_train_slices(params[name], repeats, pi)
+                   for pi in range(len(pattern))]
+        for i in range(repeats):
+            for pi in range(len(pattern)):
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        apply_layer_train, cfg, per_pos[pi][i], x,
+                        use_reentrant=False)
+                else:
+                    x = apply_layer_train(cfg, per_pos[pi][i], x)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_head(params.get("head"), params["embed"], x,
+                     cfg.tie_embeddings).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = (targets >= 0).float()
+    tgt = torch.clamp(targets, min=0)
+    ll = logits.gather(-1, tgt[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = ((logz - ll) * mask).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    with torch.no_grad():
+        acc = ((logits.argmax(-1) == tgt).float() * mask).sum() / denom
+    return ce + aux, {"ce": ce, "aux": aux, "accuracy": acc}
 
 
 def paged_check(cfg: ModelConfig, max_len: int, page_size: int):
