@@ -62,6 +62,20 @@ Phases, one JSON line each:
            bit to the serving forward (lse_forward_equal), and its time
            against the autograd backward of
            scaled_dot_product_attention(is_causal=True, enable_gqa=True).
+           The sampling kernels (csrc/threefry_sample.cu; no Pallas twin:
+           JAX samples in jnp code): threefry2x32 bit for bit against its
+           plain version at R 8 and N 1, 3, 4 and 151 552;
+           categorical_rows at (8, 151 552) and (32, 151 552) on random
+           and on peaked logits, token for token except where the plain
+           version's top two of logits + gumbel lie within
+           4 eps32 max|logits + gumbel| (counted as near_tie_rows);
+           library none.  Then Leviathan's check at the full vocabulary
+           (4000 lanes, mass on 8 tokens, the rest at -30; the chain's
+           verify_sample and a W 2 tree's verify_tree_sample on the
+           draft as the engine draws it): the committed first token's
+           histogram within 0.035 (tests/test_speculative.py:88) of its
+           exact law, the target's softmax for the chain; the tree's law
+           departs from the softmax (the reference's rule; reported).
   launch   the port's entry points (src/repro_torch/launch) at glm4-9b's
            full width and depth, in a process of its own
            (chip_smoke.py --launch) run before any engine is built, one
@@ -98,13 +112,18 @@ Phases, one JSON line each:
            streams, dense and paged (page 16), tree speculation at
            W = 2 gives equal streams stepwise, in supersteps (K 8), as a
            stream (K 8 and 3) and in waves, and the card's prefill
-           logits agree with the CPU's.
+           logits agree with the CPU's.  Sampled (seed 5, batch 4): the
+           chain's streams at K 8, K 0, in waves of 4 and paged are
+           equal, and tree W = 2's at K 8 and K 0; every sampling kernel
+           launches.
   serve    glm4-9b at full width and depth, random bf16 weights from a
            seeded generator: ServingEngine (batch 8, max_len 1024,
            gamma 3, K=8, greedy, no drafter) serves 16 requests (prompts
            64-512, 64 new tokens; requests 1, 3, 5 and 7 share one
            prompt) with serve_stream.  Every kernel's launch count is
-           zeroed just before and read just after.
+           zeroed just before and read just after.  linear_rows
+           launches once per prefill product and once per product of
+           the draft seed the rows depend on (fuse, fc, q, k, v, o).
   cobatch  the serve's shortest prompt refilled alone and beside its
            longest (the engine's own refill packing: another pad, width
            and row count) through glm4-9b at full depth, op by op: the
@@ -142,6 +161,15 @@ Phases, one JSON line each:
            attends through the paged kernel in chain mode, the dense
            verify kernel runs only for the refills' draft seeding, and
            no page leaks after a drain.
+  sampled_serve  the serve's configuration, weights and requests with
+           sampled decoding (greedy=False, seed 5): a dense chain serve,
+           the paged engine at 512 pages (streams equal to the dense
+           sampled serve's, bit for bit) and a tree W = 4 serve; every
+           request reaches its budget and both sampling kernels launch
+           (their main-path launches are the dense sampled serve's).
+           Each prints tokens/s, superstep ms, host syncs per superstep,
+           mean accepted length and launches beside the greedy serve's
+           (chain or tree W = 4) from this run.
   train    the draft's training step (the paper loop's step 8):
            DraftTrainer.train_cycle on the 16 63-token signal windows
            the serve phase's SignalExtractor collected (drained right
@@ -207,7 +235,9 @@ Phases, one JSON line each:
            inside a stream, re-seeds equal to deploys, two backward
            launches a step, and the thread gone after close() (a second
            close() a no-op).
-  profile  torch.profiler over a short serve on the dense engine right
+  profile  torch.profiler over a short serve (8 requests of prompt 256,
+           PROFILE_NEW new tokens: a prologue and one superstep) on the
+           dense engine right
            after its serve, then on the half-pool paged engine, each
            tree engine and the W = 4 paged tree engine, each right after
            its serve: device busy share, device time by kernel class,
@@ -216,9 +246,11 @@ Phases, one JSON line each:
            block the host more than the chain.  Each engine is freed
            before the next is built.
 
-Then the kernel table (``{"kernels": [...]}``: nine rows, each with its
-launch count from the main-path serve (or, for flash_attention_bwd, the
-train phase) that runs it, the launch phase's count
+Then a ``total`` line with the run's seconds, and the kernel table
+(``{"kernels": [...]}``: eleven rows, each with its launch count from
+the main-path serve (for flash_attention_bwd, the train phase; for the
+sampling kernels, the dense sampled serve) that runs it, the launch
+phase's count
 (launch_phase_launches) and its ms,
 device_ms and host_ms), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -286,7 +318,7 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 # the port's CUDA kernels, by the names the profiler lists
 PORT_KERNELS = ("attn_rows", "mma_rows", "extract_pack", "linear_rows",
-                "flash_bwd")
+                "flash_bwd", "threefry", "categorical")
 
 
 def kernel_ms(call: partial, iters: int = 20) -> dict:
@@ -596,6 +628,7 @@ def phase_kernels():
               f"slot 3 of {tuple(bufs[0].shape)}"))
     rows.append(_linear_rows_row(g))
     rows.append(_flash_bwd_row(g))
+    rows += _sample_rows(g)
     for row in rows:
         got = launch_cases.get(row["name"])
         if got:
@@ -998,7 +1031,8 @@ SHIFT_KINDS_OF = {
     "verify_attention_paged": ("verify_paged4", "verify_paged1"),
     "verify_attention_tree": ("tree",),
     "verify_attention_paged_tree": ("tree_paged",), "extract_pack": (),
-    "linear_rows": (), "flash_attention_bwd": ()}
+    "linear_rows": (), "flash_attention_bwd": (), "threefry2x32": (),
+    "categorical_rows": ()}
 
 # glm4-9b's (name, K, N) of the prefill's products
 LINEAR_KN = (("k_proj", 4096, 256), ("q_proj/o_proj", 4096, 4096),
@@ -1079,6 +1113,193 @@ def _linear_rows_row(g):
                 **top, library="torch.matmul (also the plain version)",
                 shape=f"ffn_down x ({top_m}, {head['K']}) @ w "
                       f"({head['K']}, {head['N']}) bf16", cases=cases)
+
+
+# the sampling kernels' operation counts an element, for their bound: the
+# threefry hash is 80 32-bit integer operations (4 key-schedule adds and
+# xors, 20 rounds of add, rotate and xor, 5 injections of 3 adds); the
+# draw adds ~10 (the uniform's shift, or, subtract and clamp, two logf
+# counted as one each, the add and the compare).  Integer and float32
+# work both run at the card's non-tensor 32-bit rate (67 T/s).
+HASH_OPS, DRAW_OPS = 80, 90
+INT32_OPS_PER_S = 67e12
+SAMPLE_V = 151552               # glm4-9b's vocabulary
+LEVIATHAN_LANES = 4000
+# the Leviathan check's 8 live tokens (spread over the vocabulary and its
+# kernel's chunks) and their target and draft logits (as
+# tests/test_speculative.py:88); every other token sits at -30
+LEVIATHAN_IDS = (3, 2047, 2048, 40000, 75776, 100001, 151000, 151551)
+LEVIATHAN_T = (0.5, 2.0, -1.0, 0.0, 1.0, -2.0, 0.3, 0.7)
+LEVIATHAN_D = (2.0, -1.0, 0.5, 1.5, -0.5, 0.0, 1.0, -2.0)
+
+
+def _sample_bound(nbytes: float, ops: float):
+    mem, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (mem, "bytes") if mem >= op else (op, "operations")
+
+
+def _sample_rows(g):
+    """The sampling kernels (csrc/threefry_sample.cu) against their plain
+    versions: threefry2x32 bit for bit at R 8 and N 1, 3, 4 and 151 552;
+    categorical_rows at (8, 151 552) and (32, 151 552) on random and on
+    peaked logits, token for token except where the plain version's top
+    two of logits + gumbel lie within 4 eps32 max|logits + gumbel| (such
+    rows counted as near_tie_rows); then the Leviathan check at the full
+    vocabulary (``_leviathan``).  Returns the two rows."""
+    from repro_torch.kernels.sample.ops import categorical_rows, threefry2x32
+    from repro_torch.kernels.sample.ref import (near_tie_rows,
+                                                perturbed_rows_ref,
+                                                threefry2x32_ref)
+    dev = torch.device("cuda")
+
+    def words(*shape):
+        return torch.randint(0, 2 ** 32, shape, generator=g, device=dev,
+                             dtype=torch.int64)
+    tcases = []
+    for n in (1, 3, 4, SAMPLE_V):
+        keys, ctr = words(8, 2), words(8, n, 2)
+        got = threefry2x32(keys, ctr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, threefry2x32_ref(keys, ctr)), \
+            f"threefry2x32 N={n} differs from its plain version"
+        b_ms, b_by = _sample_bound(8 * (2 * 8 + 4 * 8 * n), HASH_OPS * 8 * n)
+        tcases.append(dict(
+            R=8, N=n, equal=True,
+            **kernel_ms(partial(threefry2x32, keys, ctr), iters=50),
+            plain_ms=cuda_ms(lambda: threefry2x32_ref(keys, ctr), iters=5),
+            bound_ms=b_ms, bound_by=b_by))
+    head = tcases[1]                    # N = gamma: the draft step keys
+    trow = dict(name="threefry2x32", route="cuda",
+                source="src/repro_torch/csrc/threefry_sample.cu",
+                replaces="none: no Pallas kernel; jax.random.fold_in, split "
+                         "and uniform (threefry2x32) in jnp code, "
+                         "src/repro/core/speculative.py:65-70, 355-360, "
+                         "812-815",
+                max_abs_err=0.0,
+                **{k: head[k] for k in ("ms", "device_ms", "host_ms",
+                                        "plain_ms", "bound_ms", "bound_by")},
+                library_ms=None,
+                library="none: no PyTorch call computes JAX's threefry",
+                shape="keys (8, 2), counters (8, 3, 2) int64 words",
+                cases=tcases)
+    ccases = []
+    for r, peaked in ((8, False), (8, True), (32, False), (32, True)):
+        keys = words(r, 2)
+        lg = torch.randn((r, SAMPLE_V), generator=g, device=dev) * 3
+        if peaked:
+            lg = torch.full_like(lg, -30.0)
+            lg[:, list(LEVIATHAN_IDS)] = torch.randn((r, 8), generator=g,
+                                                     device=dev)
+        got = categorical_rows(keys, lg)
+        z = perturbed_rows_ref(keys, lg)
+        want = z.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ties = near_tie_rows(z)
+        differ = got != want
+        assert not (differ & ~ties).any(), \
+            f"categorical_rows ({r}, {SAMPLE_V}) differs off a near-tie"
+        b_ms, b_by = _sample_bound(4 * r * SAMPLE_V + 16 * r + 4 * r,
+                                   DRAW_OPS * r * SAMPLE_V)
+        ccases.append(dict(
+            R=r, V=SAMPLE_V, logits="peaked" if peaked else "random",
+            tokens_differing=int(differ.sum()),
+            near_tie_rows=int(ties.sum()),
+            **kernel_ms(partial(categorical_rows, keys, lg)),
+            plain_ms=cuda_ms(lambda: perturbed_rows_ref(keys, lg).argmax(-1),
+                             iters=5),
+            bound_ms=b_ms, bound_by=b_by))
+        del lg, z
+    head = ccases[0]
+    crow = dict(name="categorical_rows", route="cuda",
+                source="src/repro_torch/csrc/threefry_sample.cu",
+                replaces="none: no Pallas kernel; jax.random.categorical in "
+                         "jnp code, src/repro/core/speculative.py:88-90, "
+                         "234-236, 519-522, src/repro/core/eagle.py:228-231",
+                max_abs_err=0.0,
+                **{k: head[k] for k in ("ms", "device_ms", "host_ms",
+                                        "plain_ms", "bound_ms", "bound_by")},
+                library_ms=None,
+                library="none: no single PyTorch call draws JAX's "
+                        "categorical",
+                shape=f"keys (8, 2), logits (8, {SAMPLE_V}) fp32",
+                cases=ccases, leviathan=_leviathan())
+    return [trow, crow]
+
+
+def _leviathan() -> dict:
+    """Leviathan's check at the full vocabulary, on the card's kernels:
+    fixed target and draft logits (mass on LEVIATHAN_IDS, the rest at
+    -30) for 4000 lanes of per-lane keys; the draft drawn as the engine
+    draws it (``eagle.draft_propose_tree``: branch 0 a sampled chain,
+    step j with fold_in(key, j), sibling roots greedy over the masked
+    logits), then ``verify_sample`` (the chain) and ``verify_tree_sample``
+    at W 2.  The committed first tokens' histogram must lie within the
+    JAX test's bound (tests/test_speculative.py:88: 0.035) of the exact
+    law of that token (``tree_first_token_law``): for the chain, the
+    target's softmax; for the tree, the reference algorithm's law, whose
+    distance from the softmax is reported (``law_vs_softmax``)."""
+    from repro_torch.core import prng
+    from repro_torch.core import speculative as spec
+    from repro_torch.kernels.sample import ops as sample
+    from repro_torch.kernels.sample.ref import tree_first_token_law
+    dev = torch.device("cuda")
+    ids = torch.tensor(LEVIATHAN_IDS, device=dev)
+    t = torch.full((SAMPLE_V,), -30.0, device=dev)
+    d = torch.full((SAMPLE_V,), -30.0, device=dev)
+    t[ids] = torch.tensor(LEVIATHAN_T, device=dev)
+    d[ids] = torch.tensor(LEVIATHAN_D, device=dev)
+    keys = prng.split(prng.key(0, dev), LEVIATHAN_LANES)
+    out = {}
+    for w in (1, 2):
+        law = tree_first_token_law(t.cpu(), d.cpu(), w)[ids.cpu()]
+        first = []
+        for lo in range(0, LEVIATHAN_LANES, 500):
+            kk = sample.fold_in_each(keys[lo:lo + 500], 2)
+            n = kk.shape[0]
+            sk = sample.fold_in_each(kk[:, 0], GLM["GAMMA"])
+            dn = d.expand(n, SAMPLE_V)
+            toks = [torch.stack([sample.categorical_rows(sk[:, j], dn)
+                                 for j in range(GLM["GAMMA"])], dim=1)]
+            dlog = [d.expand(n, GLM["GAMMA"], SAMPLE_V)]
+            masked = dn.clone()
+            for _ in range(1, w):
+                masked.scatter_(1, toks[-1][:, :1].long(), -1e30)
+                root = masked.argmax(-1).to(torch.int32)
+                rest = torch.full((n, GLM["GAMMA"] - 1), int(d.argmax()),
+                                  dtype=torch.int32, device=dev)
+                toks.append(torch.cat([root[:, None], rest], dim=1))
+                dlog.append(torch.cat([masked[:, None], dlog[0][:, 1:]],
+                                      dim=1))
+            tl = t.expand(n, w * GLM["GAMMA"] + 1, SAMPLE_V)
+            if w == 1:
+                na, bonus = spec.verify_sample(None, tl, dlog[0], toks[0],
+                                               keys=kk[:, 1])
+                sel = torch.zeros_like(na)
+            else:
+                na, sel, bonus = spec.verify_tree_sample(
+                    None, tl, torch.stack(dlog, 1), torch.stack(toks, 1),
+                    keys=kk[:, 1])
+            tree = torch.stack(toks, 1)
+            first.append(torch.where(
+                na > 0, tree[torch.arange(n, device=dev), sel.long(), 0],
+                bonus))
+            del masked, dlog, tl
+        first = torch.cat(first)
+        torch.cuda.synchronize()
+        hist = torch.stack([(first == i).sum() for i in ids]).double().cpu()
+        emp = hist / LEVIATHAN_LANES
+        dev_law = float((emp - law).abs().max())
+        soft = torch.softmax(torch.tensor(LEVIATHAN_T, dtype=torch.float64),
+                             dim=0)
+        assert int(hist.sum()) == LEVIATHAN_LANES, "a token off the 8 live"
+        assert dev_law < 0.035, \
+            f"Leviathan W={w}: histogram {emp.tolist()} vs law {law.tolist()}"
+        out[f"W{w}"] = dict(lanes=LEVIATHAN_LANES,
+                            max_dev_from_law=dev_law,
+                            max_dev_from_softmax=float(
+                                (emp - soft).abs().max()),
+                            law_vs_softmax=float((law - soft).abs().max()))
+    return out
 
 
 def _sdpa_bwd(q, k, v, do):
@@ -1470,6 +1691,7 @@ def phase_ladder():
     ref = tree[("wave", 0)]
     assert all(v == ref for v in tree.values()), \
         "tree W=2: stepwise / superstep / stream / wave streams differ"
+    sampled = _sampled_ladder(cfg, params, dcfg, dparams)
     # the card's prefill against the CPU's (plain kernels) on one prompt
     toks = torch.tensor([np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=48).tolist()], dtype=torch.int32)
@@ -1486,10 +1708,58 @@ def phase_ladder():
           "tree2_stepwise_superstep_stream_wave_equal": True,
           "tree2_requests_equal_chain": sum(
               a == b for a, b in zip(ref, streams[8])),
+          "sampled": sampled,
           "prefill_logits_rel_err_vs_cpu": rel,
           "argmax_equal": bool(gpu.argmax() == cpu.argmax())})
     del params, dparams
     torch.cuda.empty_cache()
+
+
+def _sampled_ladder(cfg, params, dcfg, dparams) -> dict:
+    """The sampled ladder (greedy=False, seed 5; tests/test_continuous.py
+    :133, tests/test_superstep.py:98), held exactly: the chain's streams
+    at K 8 == K 0 == waves of 4 == stream, paged (page 16) == dense, and
+    tree W 2 superstep == stepwise; every sampling kernel launched."""
+    from repro_torch.kernels.sample.ops import categorical_rows, threefry2x32
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    dev = torch.device("cuda")
+    runs = {}
+    for name, k, mode, kw in (("K8", 8, "stream", {}),
+                              ("K0", 0, "stream", {}),
+                              ("waves4", 8, "wave", {}),
+                              ("paged", 8, "stream", {"page_size": GLM["P"]}),
+                              ("tree2_K8", 8, "stream", {"tree_width": 2}),
+                              ("tree2_K0", 0, "stream", {"tree_width": 2})):
+        conf = ServingConfig(batch_size=4, max_len=256, gamma=3,
+                             superstep_rounds=k, greedy=False, seed=5, **kw)
+        eng = ServingEngine(cfg, params, dcfg, dparams, config=conf,
+                            device=dev)
+        reqs = _requests(np.random.default_rng(3), 8, 16, 128, 24,
+                         cfg.vocab_size)
+        n0 = (threefry2x32.launches, categorical_rows.launches)
+        if mode == "wave":
+            eng.serve_wave(reqs[:4])
+            eng.serve_wave(reqs[4:])
+        else:
+            eng.serve_stream(iter(reqs))
+        torch.cuda.synchronize()
+        assert threefry2x32.launches > n0[0] and \
+            categorical_rows.launches > n0[1], f"sampled {name}: no launch"
+        runs[name] = [list(r.generated) for r in reqs]
+        assert all(len(s_) == 24 for s_ in runs[name])
+        if eng.paged:
+            eng.release_prefix_cache()
+            eng.allocator.assert_clean()
+        del eng
+    for name in ("K0", "waves4", "paged"):
+        assert runs[name] == runs["K8"], f"sampled chain {name} != K8"
+    assert runs["tree2_K0"] == runs["tree2_K8"], \
+        "sampled tree W=2 stepwise != superstep"
+    return {"chain_K8_K0_waves_stream_equal": True,
+            "paged_equal_dense": True, "tree2_stepwise_superstep_equal": True,
+            "tree2_requests_equal_chain": sum(
+                a == b for a, b in zip(runs["tree2_K8"], runs["K8"]))}
 
 
 def _kernel_fns():
@@ -1497,9 +1767,12 @@ def _kernel_fns():
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_paged)
     from repro_torch.kernels.linear_rows.ops import linear_rows
+    from repro_torch.kernels.sample.ops import categorical_rows, threefry2x32
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                      verify_attention_paged)
     return {"flash_attention": flash_attention,
+            "threefry2x32": threefry2x32,
+            "categorical_rows": categorical_rows,
             "verify_attention": verify_attention,
             "extract_pack": pack_signals,
             "verify_attention_paged": verify_attention_paged,
@@ -1596,10 +1869,11 @@ def phase_serve():
     summary, launches = _timed_serve(eng, reqs)
     for name in ("flash_attention", "verify_attention", "extract_pack"):
         assert launches[name] > 0, launches
-    # every prefill op: q, k, v, o, gate, up and down of each layer, and
-    # the last-position lm_head
+    # every prefill op: q, k, v, o, gate, up and down of each layer and
+    # the last-position lm_head; then its draft seed: the three fuse
+    # products, fc, q, k, v and o
     assert launches["linear_rows"] == len(summary["prefill_rows_width_ms"]) \
-        * (7 * cfg.num_layers + 1), launches
+        * (7 * cfg.num_layers + 1 + 8), launches
     emit({"phase": "serve", **summary, "init_s": round(init_s, 2),
           "nvidia_smi": smi()})
     # the train phase's signals: this serve's windows, drained before
@@ -1754,7 +2028,7 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
     never accepted, so the mean accepted length is about 1.0 and the
     winning branch is 0.  Each engine is profiled right after its serve
     and freed before the next is built.  Returns {W: (launches,
-    streams)}."""
+    streams, summary)}."""
     from repro_torch.core.signals import SignalExtractor, SignalStore
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.policy import ServingConfig
@@ -1799,7 +2073,7 @@ def phase_tree_serve(dense_eng, dense, dense_streams, blocking):
             if diff:
                 row["first_flip"] = _flips(eng, reqs, streams,
                                            dense_streams)[0]
-        out[width] = (launches, streams)
+        out[width] = (launches, streams, summary)
         emit(row)
         profile_against(eng, f"tree W={width}", blocking)
         del eng
@@ -1894,6 +2168,56 @@ def phase_paged_tree_serve(dense_eng, dense, dense_streams, tree_streams,
         if width == W4 and num_pages == 512:
             out = launches
             profile_against(eng, f"paged tree W={W4}", blocking)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sampled_serve(dense_eng, dense, tree_greedy):
+    """Sampled decoding (greedy=False, seed 5) on the serve phase's
+    configuration, weights and 16 requests (glm4-9b at full width and
+    depth): a dense chain serve, the same requests through the paged
+    engine (page 16, the dense footprint of 512 pages; its streams must
+    equal the dense serve's bit for bit), and a tree W 4 serve.  Every
+    request must reach its budget and every sampling kernel launch.
+    Each prints tokens/s, superstep ms, host syncs per superstep, mean
+    accepted length and launches beside the greedy serve's figures from
+    this run.  Returns the dense sampled serve's launches."""
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    keys = ("tokens_per_s", "superstep_ms_median", "host_syncs_per_superstep",
+            "mean_accept_len")
+    out, streams = None, None
+    for name, kw, greedy in (("chain", {}, dense),
+                             ("paged", {"page_size": GLM["P"]}, dense),
+                             ("tree", {"tree_width": GLM["TREE_W"]},
+                              tree_greedy)):
+        conf = ServingConfig(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
+                             superstep_rounds=8, greedy=False, seed=5, **kw)
+        eng = ServingEngine(dense_eng.cfg, dense_eng.params, dense_eng.dcfg,
+                            dense_eng.dparams, config=conf,
+                            device=dense_eng.device,
+                            extractor=SignalExtractor(SignalStore()))
+        reqs = _serve_requests(eng.cfg.vocab_size)
+        summary, launches = _timed_serve(eng, reqs)
+        got = [list(r.generated) for r in reqs]
+        for k in ("threefry2x32", "categorical_rows", "extract_pack"):
+            assert launches[k] > 0, (name, launches)
+        row = {"phase": "sampled_serve", "engine": name, "seed": 5,
+               **summary, "greedy": {k: greedy[k] for k in keys},
+               "nvidia_smi": smi()}
+        if name == "chain":
+            out, streams = launches, got
+        elif name == "paged":
+            assert got == streams, "sampled paged streams != dense"
+            row["streams_equal_dense"] = True
+            eng.release_prefix_cache()
+            eng.allocator.assert_clean()
+        else:
+            row["streams_differing_from_chain"] = sum(
+                a != b for a, b in zip(got, streams))
+        emit(row)
         del eng
         torch.cuda.empty_cache()
     return out
@@ -2460,6 +2784,8 @@ def _kernel_class(name: str) -> str:
         return "extract_pack (port)"
     if "linear_rows" in n:
         return "linear_rows (port)"
+    if "threefry" in n or "categorical" in n:
+        return "sampling kernels (port)"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "xmma" in n \
             or "splitk" in n or "nvjet" in n:   # nvjet: cuBLAS's sm90 GEMMs
         return "matmul (cuBLAS)"
@@ -2497,13 +2823,19 @@ def _device_classes(events, per: float = 1.0) -> dict:
                     for e in sorted(kernels, key=dev_ms, reverse=True)[:10]]}
 
 
+# the profile phase's new tokens a request: the first token and one
+# superstep of 8 rounds (17, two supersteps, until the sampled phases
+# needed the time)
+PROFILE_NEW = 9
+
+
 def phase_profile(eng, which="dense"):
     """Where a serve's time goes: ``torch.profiler`` over a short stream
-    on a served engine (8 requests, prompt 256, 17 new tokens: one
-    prologue prefill and two supersteps), with the count of host-blocking
-    CUDA calls.  Returns that count."""
+    on a served engine (8 requests, prompt 256, PROFILE_NEW new tokens:
+    one prologue prefill and one superstep), with the count of
+    host-blocking CUDA calls.  Returns that count."""
     from torch.profiler import ProfilerActivity, profile
-    reqs = _requests(np.random.default_rng(6), 8, 256, 256, 17,
+    reqs = _requests(np.random.default_rng(6), 8, 256, 256, PROFILE_NEW,
                      eng.cfg.vocab_size)
     torch.cuda.synchronize()
     syncs0 = eng.host_syncs
@@ -2547,10 +2879,13 @@ def main():
     launches["verify_attention_tree"] = \
         trees[GLM["TREE_W"]][0]["verify_attention_tree"]
     ptree = phase_paged_tree_serve(
-        eng, dense, dense_streams, {w: s for w, (_, s) in trees.items()},
+        eng, dense, dense_streams, {w: s for w, (_, s, _) in trees.items()},
         blocking)
     launches["verify_attention_paged_tree"] = \
         ptree["verify_attention_paged_tree"]
+    sampled = phase_sampled_serve(eng, dense, trees[GLM["TREE_W"]][2])
+    for name in ("threefry2x32", "categorical_rows"):
+        launches[name] = sampled[name]
     model = (eng.cfg, eng.params, eng.dcfg, eng.dparams)
     del eng, trees
     import gc
@@ -2562,6 +2897,8 @@ def main():
     phase_reseed(*model)
     phase_tide_async(*model, dense, dense_streams, tide_row)
     del model
+    emit({"phase": "total", "seconds": round(time.perf_counter() - T_START,
+                                             1)})
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launch_phase_launches"] = launch.get(row["name"], 0)

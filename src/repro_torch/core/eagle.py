@@ -13,8 +13,9 @@ read and written through its own ``tbl`` copy of the block table.
 ``draft_extend`` / ``draft_propose`` write their K/V rows into it in place
 (JAX donates the buffers) and return a new dict with the advanced
 lengths.  Refill seeding runs on a dense R-row staging cache, which
-``scatter_draft_rows_paged`` then writes through the table.  Only greedy
-drafting is ported.  ``draft_train_loss`` is the EAGLE-3 training loss,
+``scatter_draft_rows_paged`` then writes through the table.  Drafting is
+greedy or sampled with JAX's threefry keys (``kernels/sample``).
+``draft_train_loss`` is the EAGLE-3 training loss,
 differentiable through the prefill kernel and its backward kernel.
 """
 from __future__ import annotations
@@ -23,6 +24,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.linear_rows.ops import linear_rows
+from repro_torch.kernels.sample import ops as sample
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ATTN, FFN_SWIGLU, BlockDef, ModelConfig
 from repro_torch.models.layers import (EMBED, MLP, embed, ffn, ffn_specs,
@@ -91,12 +94,14 @@ def draft_param_count(dcfg: ModelConfig) -> int:
 
 # ------------------------------------------------------------ core layer
 def _layer(dcfg: ModelConfig, p, x, k_cache, v_cache, lengths, pad,
-           page_tbl=None):
+           page_tbl=None, linear=torch.matmul):
     """One decoder layer over new positions (decode form, in-place cache
-    write; through ``page_tbl`` for a paged draft cache)."""
+    write; through ``page_tbl`` for a paged draft cache).  ``linear``
+    computes the attention's projections."""
     h = rmsnorm(p["norm1"], x, dcfg.norm_eps)
     out, _ = attn.self_attention_decode(dcfg, p["attn"], h, k_cache, v_cache,
-                                        lengths, pad, page_tbl=page_tbl)
+                                        lengths, pad, page_tbl=page_tbl,
+                                        linear=linear)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, dcfg.norm_eps)
     return x + ffn(p["ffn"], h2)
@@ -116,22 +121,22 @@ def _head(dcfg, dparams, x):
     return (x @ dparams["head"]["w"]).float()
 
 
-def _fuse_inputs(dcfg, dparams, feats, tok_emb):
+def _fuse_inputs(dcfg, dparams, feats, tok_emb, linear=torch.matmul):
     """feats: (B,T,3D) target captures (or (B,T,D) self features);
     tok_emb: (B,T,D).  Returns fc([fused; emb]).  The 3D→D fuse is the
     sum of three D-contraction products, one per capture level, as in
-    the reference."""
+    the reference; ``linear`` computes the products."""
     dt = tok_emb.dtype
     d = dcfg.d_model
     if feats.shape[-1] == 3 * d:
         w = dparams["fuse"]
         f = feats.to(dt)
-        fused = sum(f[..., i * d:(i + 1) * d] @ w[i * d:(i + 1) * d]
+        fused = sum(linear(f[..., i * d:(i + 1) * d], w[i * d:(i + 1) * d])
                     for i in range(3))
     else:
         fused = feats.to(dt)
     x = torch.cat([fused, tok_emb], dim=-1)
-    return x @ dparams["fc"]
+    return linear(x, dparams["fc"])
 
 
 # ------------------------------------------------------------- cache
@@ -161,16 +166,18 @@ def init_draft_cache(dcfg: ModelConfig, batch: int, max_len: int, *,
 
 # ------------------------------------------------------- serving functions
 def draft_extend(dcfg: ModelConfig, dparams, embed_params, dcache, feats,
-                 tokens, advance):
+                 tokens, advance, linear=torch.matmul):
     """Append ``T`` (feature, token) pairs to the draft cache.
 
     feats: (B, T, 3D) target captures; tokens: (B, T) the tokens
     following each feature position; advance: (B,) how many are valid.
-    Returns (logits (B,T,V), h (B,T,D), dcache')."""
+    ``linear`` computes the products the cache rows depend on (the input
+    fuse and the attention's projections).  Returns (logits (B,T,V),
+    h (B,T,D), dcache')."""
     tok_emb = embed(embed_params, tokens, dcfg.act_dtype)
-    x = _fuse_inputs(dcfg, dparams, feats, tok_emb)
+    x = _fuse_inputs(dcfg, dparams, feats, tok_emb, linear)
     x = _layer(dcfg, dparams, x, dcache["k"], dcache["v"],
-               dcache["lengths"], dcache["pad"], dcache.get("tbl"))
+               dcache["lengths"], dcache["pad"], dcache.get("tbl"), linear)
     h = rmsnorm(dparams["final_norm"], x, dcfg.norm_eps)
     logits = _head(dcfg, dparams, h)
     new_cache = dict(dcache, lengths=dcache["lengths"] + advance.to(torch.int32))
@@ -178,19 +185,39 @@ def draft_extend(dcfg: ModelConfig, dparams, embed_params, dcache, feats,
 
 
 def draft_propose(dcfg: ModelConfig, dparams, embed_params, dcache, h_last,
-                  first_logits, gamma: int, *, greedy: bool = True):
-    """Chain-draft γ tokens greedily.  h_last: (B, D) draft hidden at the
-    last verified position; first_logits: (B, V) draft logits there.
+                  first_logits, gamma: int, *, greedy: bool = True,
+                  key=None, keys=None):
+    """Chain-draft γ tokens.  h_last: (B, D) draft hidden at the last
+    verified position; first_logits: (B, V) draft logits there.
+
+    Greedy picks the argmax.  Sampled: with per-lane ``keys`` (B, 2),
+    step j of lane b draws with ``fold_in(keys[b], j)``; with the
+    batch-global ``key`` step j draws over the batch with ``split(key,
+    γ)[j]``; with neither, with the zero key (as JAX's scan over zeros).
 
     Returns (draft_tokens (B, γ), draft_logits (B, γ, V), dcache') with
     dcache' lengths advanced by γ (the caller rolls them back)."""
+    step_keys = None
     if not greedy:
-        raise NotImplementedError("sampled drafting is not ported yet "
-                                  "(ROADMAP queue 1: sampled decoding)")
+        if keys is not None:
+            step_keys = sample.fold_in_each(keys, gamma)       # (B, γ, 2)
+        elif key is not None:
+            step_keys = sample.split(key, gamma)               # (γ, 2)
+        else:
+            step_keys = torch.zeros((gamma, 2), dtype=torch.int64,
+                                    device=first_logits.device)
+
+    def pick(logits, j):
+        if greedy:
+            return logits.argmax(-1).to(torch.int32)
+        if keys is not None:
+            return sample.categorical_rows(step_keys[:, j], logits)
+        return sample.categorical(step_keys[j], logits)
+
     h, logits, cache = h_last, first_logits, dcache
     toks, logitss = [], []
-    for _ in range(gamma):
-        tok = logits.argmax(-1).to(torch.int32)
+    for j in range(gamma):
+        tok = pick(logits, j)
         tok_emb = embed(embed_params, tok[:, None], dcfg.act_dtype)
         x = _fuse_inputs(dcfg, dparams, h[:, None], tok_emb)
         x = _layer(dcfg, dparams, x, cache["k"], cache["v"],
@@ -206,13 +233,15 @@ def draft_propose(dcfg: ModelConfig, dparams, embed_params, dcache, h_last,
 
 def draft_propose_tree(dcfg: ModelConfig, dparams, embed_params, dcache,
                        h_last, first_logits, gamma: int, width: int, *,
-                       greedy: bool = True):
+                       greedy: bool = True, key=None, keys=None):
     """Draft a token tree: ``width`` chains of depth γ sharing the root.
 
-    Branch 0 is the ``draft_propose`` chain verbatim (width 1 is the
-    chain).  Branch r >= 1 re-proposes greedily from the same
-    post-extend cache with the depth-1 tokens of the branches before it
-    masked to -1e30, so sibling roots are distinct.  Every branch writes
+    Branch 0 is the ``draft_propose`` chain verbatim, greedy or sampled
+    with the same keys (width 1 is the chain).  Branch r >= 1
+    re-proposes greedily from the same post-extend cache with the
+    depth-1 tokens of the branches before it masked to -1e30, so sibling
+    roots are distinct; its depth-1 logits row is that masked density,
+    the proposal the sampled acceptance divides by.  Every branch writes
     its propose K/V at the same slots [lengths, lengths + γ), in place;
     each step reads only slots its own branch wrote, and the next
     ``draft_extend`` rewrites them all before any read.  (In JAX the
@@ -220,16 +249,16 @@ def draft_propose_tree(dcfg: ModelConfig, dparams, embed_params, dcache,
 
     Returns (tokens (B, width, γ), logits (B, width, γ, V), dcache')
     with dcache' branch 0's cache (lengths advanced by γ)."""
-    if not greedy:
-        raise NotImplementedError("sampled drafting is not ported yet "
-                                  "(ROADMAP queue 1: sampled decoding)")
     masked = first_logits
     toks_all, logits_all, cache0 = [], [], None
     for r in range(width):
-        toks, logitss, cache = draft_propose(
-            dcfg, dparams, embed_params, dcache, h_last, masked, gamma)
         if r == 0:
-            cache0 = cache
+            toks, logitss, cache0 = draft_propose(
+                dcfg, dparams, embed_params, dcache, h_last, masked, gamma,
+                greedy=greedy, key=key, keys=keys)
+        else:
+            toks, logitss, _ = draft_propose(
+                dcfg, dparams, embed_params, dcache, h_last, masked, gamma)
         if r + 1 < width:
             # a scalar scatter: no host-to-device copy of the value
             masked = masked.scatter(1, toks[:, :1].long(), NEG_INF)
@@ -247,13 +276,19 @@ def seed_prompt_pairs(dcfg: ModelConfig, dparams, embed_params, dcache,
                       captures, tokens, pad):
     """The draft 'prefill': set the cache's pad and ingest the prompt
     pairs (caps[i], t_{i+1}) for i < S-1 (one ``draft_extend`` of
-    T = S - 1)."""
+    T = S - 1).  The products the cache rows depend on run through
+    ``linear_rows``, as the target prefill's do, so a prompt's draft rows
+    do not depend on its refill batch (its row count and width): sampled
+    acceptance reads the draft's probabilities, and the streams of the
+    superstep and the stepwise loop, which refill in other batches, must
+    agree."""
     b, s, _ = captures.shape
     dcache = dict(dcache, pad=pad.to(torch.int32, copy=True))
     _, _, dcache = draft_extend(
         dcfg, dparams, embed_params, dcache, captures[:, :s - 1],
         tokens[:, 1:],
-        torch.full((b,), s - 1, dtype=torch.int32, device=captures.device))
+        torch.full((b,), s - 1, dtype=torch.int32, device=captures.device),
+        linear=linear_rows)
     return dcache
 
 

@@ -1,7 +1,9 @@
-"""Speculative decoding, greedy chain or draft tree (port of
+"""Speculative decoding, chain or draft tree, greedy or sampled (port of
 ``repro/core/speculative.py``).
 
-Draft-propose + target-verify + exact-match acceptance, the fused
+Draft-propose + target-verify + acceptance (greedy exact match, or
+Leviathan-style sampling: accept with probability min(1, p/q), draw the
+bonus from the residual), the fused
 ``spec_decode_step`` of the serving engine, its draft-tree twin
 ``tree_decode_step`` (dense or paged caches), and ``decode_superstep``: K
 rounds with the Eq. 5 speculate-vs-plain gate, on-device token commit,
@@ -11,6 +13,12 @@ The verify block fed to the target is ``[t0, d1, …, dγ]`` (t0 = the last
 committed token); target logits at block index j give the token after
 block[j]; ``n_acc`` drafts are accepted and one bonus token is taken
 from logits[n_acc], so each round commits ``n_acc + 1`` tokens.
+
+Sampling draws JAX's numbers: keys are threefry words (``core/prng``),
+and every hash and vocabulary-wide draw goes through the sampling
+kernels (``kernels/sample``).  ``keys`` (B, 2) are per-lane keys, all of
+lane b's randomness derived from ``keys[b]``; ``key`` (2,) is the
+reference's batch-global key.
 
 GPU execution model of this slice: PyTorch runs eagerly and cannot
 branch on device values without reading them, so each superstep round
@@ -26,9 +34,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core import eagle
+from repro_torch.core import eagle, prng
 from repro_torch.core.adaptive import drafter_decide
 from repro_torch.core.paging import page_slot, write_rows_paged
+from repro_torch.kernels.sample import ops as sample
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -49,6 +58,67 @@ def verify_greedy(target_logits, draft_tokens):
     n_acc = match.cumprod(dim=1).sum(dim=1).to(torch.int32)
     bonus = _take(target_logits, n_acc).argmax(-1).to(torch.int32)
     return n_acc, bonus
+
+
+def _two_keys(key, keys):
+    """A sampled round's two keys (draft and verify; in the verifiers,
+    acceptance and residual): fold-ins 0 and 1 of the per-lane ``keys``
+    ((B, 2) each), or the split of the batch-global ``key``."""
+    if keys is not None:
+        kk = sample.fold_in_each(keys, 2)
+        return kk[:, 0], kk[:, 1]
+    kk = sample.split(key)
+    return kk[0], kk[1]
+
+
+def _draw(k_res, logits, per_lane: bool):
+    """One categorical draw a lane: per-lane keys (B, 2), or one key over
+    the batch."""
+    if per_lane:
+        return sample.categorical_rows(k_res, logits)
+    return sample.categorical(k_res, logits)
+
+
+def _residual_draw(k_res, dist, per_lane: bool):
+    """Normalise, take ``log(dist + 1e-20)`` and draw, as the reference."""
+    dist = dist / torch.clamp(dist.sum(-1, keepdim=True), min=1e-20)
+    return _draw(k_res, torch.log(dist + 1e-20), per_lane)
+
+
+def verify_sample(key, target_logits, draft_logits, draft_tokens,
+                  temperature: float = 1.0, keys=None):
+    """Stochastic speculative sampling (Leviathan et al. 2023).
+
+    target_logits: (B, γ+1, V); draft_logits: (B, γ, V); draft_tokens:
+    (B, γ).  Returns (n_acc, bonus), (B,) int32: committed tokens are
+    distributed exactly as target samples.  ``keys`` (B, 2): lane b's
+    uniforms and residual draw derive from ``keys[b]`` only; else the
+    key (2,) is consumed batch-globally."""
+    b, gp1, _ = target_logits.shape
+    gamma = gp1 - 1
+    p = torch.softmax(target_logits[:, :gamma] / temperature, dim=-1)
+    q = torch.softmax(draft_logits / temperature, dim=-1)
+    idx = draft_tokens.long()[..., None]
+    p_tok = p.gather(-1, idx)[..., 0]
+    q_tok = q.gather(-1, idx)[..., 0]
+    k_acc, k_res = _two_keys(key, keys)
+    if keys is None:
+        u = sample.uniform(k_acc[None].expand(b, 2), gamma, row_stride=gamma)
+    else:
+        u = sample.uniform(k_acc, gamma)
+    ok = u < torch.clamp(p_tok / torch.clamp(q_tok, min=1e-20), max=1.0)
+    n_acc = ok.to(torch.int32).cumprod(dim=1).sum(dim=1).to(torch.int32)
+    # residual at the first rejected slot, or the target at slot γ when
+    # every draft was accepted (q's row there is zero)
+    sel = torch.clamp(n_acc, max=gamma)
+    p_rej = torch.softmax(_take(target_logits, sel) / temperature, dim=-1)
+    q_rej = torch.where((sel < gamma)[:, None],
+                        _take(q, torch.clamp(sel, max=gamma - 1)),
+                        torch.zeros_like(p_rej))
+    residual = torch.clamp(p_rej - q_rej, min=0.0)
+    dist = torch.where((n_acc < gamma)[:, None], residual, p_rej)
+    bonus = _residual_draw(k_res, dist, keys is not None)
+    return n_acc, bonus.to(torch.int32)
 
 
 # ------------------------------------------------------ tree verification
@@ -85,6 +155,97 @@ def verify_tree_greedy(target_logits, draft_tokens):
     last_slot = torch.where(n_acc == 0, 0, 1 + sel * gamma + (n_acc - 1))
     bonus = _take(am, last_slot)
     return n_acc, sel, bonus
+
+
+def verify_tree_sample(key, target_logits, draft_logits, draft_tokens,
+                       temperature: float = 1.0, keys=None):
+    """Stochastic tree acceptance: sequential sibling tests with residual
+    updates at depth 1 (SpecInfer-style), then the chain's Leviathan rule
+    down the selected branch.
+
+    target_logits: (B, W·γ + 1, V); draft_logits: (B, W, γ, V), branch
+    r's depth-1 row the sibling-masked density it was drawn from;
+    draft_tokens: (B, W, γ).  Branch r is tested with u_r < min(1,
+    p(x_r)/q_r(x_r)) against the running residual p ← max(p − q_r, 0) of
+    the rejected siblings before it.  The bonus draws from the residual
+    at the first failing depth (the depth-1 residual over every rejected
+    sibling when none passed), or from the target at the path's last
+    slot on full accept.  Branch 0 draws the chain's uniforms and branch
+    r >= 1 folds r into the acceptance key, so width 1 is
+    ``verify_sample`` bit for bit.  Returns (n_acc, sel, bonus), (B,)
+    int32."""
+    b = target_logits.shape[0]
+    _, w, gamma = draft_tokens.shape
+    dev = target_logits.device
+    q = torch.softmax(draft_logits / temperature, dim=-1)      # (B,w,γ,V)
+    k_acc, k_res = _two_keys(key, keys)
+    if keys is None:
+        kr = [k_acc] + list(sample.fold_in_each(k_acc[None], w)[0, 1:])
+        u = torch.stack([sample.uniform(k[None].expand(b, 2), gamma,
+                                        row_stride=gamma) for k in kr],
+                        dim=1)                                  # (B,w,γ)
+    else:
+        kr = k_acc[:, None]
+        if w > 1:
+            kr = torch.cat([kr, sample.fold_in_each(k_acc, w)[:, 1:]], dim=1)
+        u = sample.uniform(kr.reshape(b * w, 2), gamma).reshape(b, w, gamma)
+
+    # depth 1: sequential sibling tests with residual updates
+    p_cur = torch.softmax(target_logits[:, 0] / temperature, dim=-1)
+    found = torch.zeros((b,), dtype=torch.bool, device=dev)
+    sel = torch.zeros((b,), dtype=torch.int32, device=dev)
+    for r in range(w):
+        x_r = draft_tokens[:, r, 0].long()[:, None]
+        q_r = q[:, r, 0]
+        q_x = q_r.gather(-1, x_r)[:, 0]
+        if r == 0:
+            p_test = p_cur            # exactly the chain's first test
+        else:
+            p_test = p_cur / torch.clamp(p_cur.sum(-1, keepdim=True),
+                                         min=1e-20)
+        p_x = p_test.gather(-1, x_r)[:, 0]
+        ok_r = u[:, r, 0] < torch.clamp(p_x / torch.clamp(q_x, min=1e-20),
+                                        max=1.0)
+        sel = torch.where(ok_r & ~found, r, sel).to(torch.int32)
+        upd = ~(found | ok_r)
+        p_cur = torch.where(upd[:, None], torch.clamp(p_cur - q_r, min=0.0),
+                            p_cur)
+        found = found | ok_r
+
+    # depths 2..γ: the chain rule down the selected branch
+    tok_sel = _take(draft_tokens, sel)                          # (B, γ)
+    q_sel = _take(q, sel)                                       # (B, γ, V)
+    u_sel = _take(u, sel)                                       # (B, γ)
+    if gamma > 1:
+        deep = (1 + sel.long()[:, None] * gamma
+                + torch.arange(gamma - 1, device=dev)[None, :])  # (B, γ-1)
+        bidx = torch.arange(b, device=dev)[:, None]
+        p_deep = torch.softmax(target_logits[bidx, deep] / temperature,
+                               dim=-1)
+        tix = tok_sel[:, 1:].long()[..., None]
+        p_tok = p_deep.gather(-1, tix)[..., 0]
+        q_tok = q_sel[:, 1:].gather(-1, tix)[..., 0]
+        ok_deep = u_sel[:, 1:] < torch.clamp(
+            p_tok / torch.clamp(q_tok, min=1e-20), max=1.0)
+        ok_full = torch.cat([found[:, None], ok_deep], dim=1)
+    else:
+        ok_full = found[:, None]
+    n_acc = ok_full.to(torch.int32).cumprod(dim=1).sum(dim=1).to(torch.int32)
+
+    # bonus: the residual at the first failing depth (n_acc == 0: the
+    # depth-1 residual over every rejected sibling), or the target at
+    # the path's last slot on full accept
+    bslot = torch.where(n_acc == 0, 0, 1 + sel * gamma + (n_acc - 1))
+    p_rej = torch.softmax(_take(target_logits, bslot) / temperature, dim=-1)
+    depth = torch.clamp(n_acc, max=gamma)
+    q_rej = torch.where((depth < gamma)[:, None],
+                        _take(q_sel, torch.clamp(depth, max=gamma - 1)),
+                        torch.zeros_like(p_rej))
+    residual = torch.clamp(p_rej - q_rej, min=0.0)
+    residual = torch.where((n_acc == 0)[:, None], p_cur, residual)
+    dist = torch.where((n_acc < gamma)[:, None], residual, p_rej)
+    bonus = _residual_draw(k_res, dist, keys is not None)
+    return n_acc, sel, bonus.to(torch.int32)
 
 
 def compact_tree_cache(cache, sel, gamma: int):
@@ -169,13 +330,6 @@ def seed_draft_cache(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                                    dcache["pad"])
 
 
-def _require_greedy(greedy: bool):
-    if not greedy:
-        raise NotImplementedError("sampled decoding is not ported yet "
-                                  "(ROADMAP queue 1: sampled decoding, "
-                                  "verify_sample with per-lane keys)")
-
-
 def _commit_tokens(draft_tokens, n_acc, bonus):
     """A round's commit from its accepted path's drafts (B, γ): tokens
     [d1..d_n_acc, bonus, 0...] (B, γ+1) int32, n_commit = n_acc + 1 and
@@ -195,13 +349,20 @@ def _commit_tokens(draft_tokens, n_acc, bonus):
 # ------------------------------------------------------------ fused step
 def spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                      cache, dcache, carry: SpecCarry, *, gamma: int = 3,
-                     greedy: bool = True):
+                     greedy: bool = True, key=None, keys=None):
     """One speculative round: draft-extend with last round's pairs,
     chain-draft γ tokens, target verify over [t0, d1..dγ], accept and
-    commit.  Returns dict(tokens (B, γ+1) (scratch beyond n_commit),
-    n_commit, cache, dcache, carry, captures, accept_mask, n_acc, block,
-    target_logits)."""
-    _require_greedy(greedy)
+    commit.  Sampled (``greedy=False``): ``keys`` (B, 2) per-lane keys
+    (draft picks, acceptance and residual of lane b all derive from
+    ``keys[b]``), else the batch-global ``key``.  Returns dict(tokens
+    (B, γ+1) (scratch beyond n_commit), n_commit, cache, dcache, carry,
+    captures, accept_mask, n_acc, block, target_logits)."""
+    k_draft = k_ver = None
+    if not greedy:
+        if key is None and keys is None:
+            key = prng.key(0, carry.tokens.device)
+        k_draft, k_ver = _two_keys(key, keys)
+    per_lane = keys is not None
     ext_logits, ext_h, dcache = eagle.draft_extend(
         dcfg, dparams, tparams["embed"], dcache, carry.feats, carry.tokens,
         carry.advance)
@@ -209,15 +370,23 @@ def spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
     h_last = _take(ext_h, last)
     first_logits = _take(ext_logits, last)
 
-    draft_tokens, _, dcache = eagle.draft_propose(
-        dcfg, dparams, tparams["embed"], dcache, h_last, first_logits, gamma)
+    draft_tokens, draft_logits, dcache = eagle.draft_propose(
+        dcfg, dparams, tparams["embed"], dcache, h_last, first_logits, gamma,
+        greedy=greedy, key=None if per_lane else k_draft,
+        keys=k_draft if per_lane else None)
 
     t0 = _take(carry.tokens, last)[:, None]
     block = torch.cat([t0, draft_tokens], dim=1)
     out = T.decode_step(cfg, tparams, cache, block)
     tl = out["logits"]
 
-    n_acc, bonus = verify_greedy(tl, draft_tokens)
+    if greedy:
+        n_acc, bonus = verify_greedy(tl, draft_tokens)
+    elif per_lane:
+        n_acc, bonus = verify_sample(None, tl, draft_logits, draft_tokens,
+                                     keys=k_ver)
+    else:
+        n_acc, bonus = verify_sample(k_ver, tl, draft_logits, draft_tokens)
     committed, n_commit, accept_mask = _commit_tokens(draft_tokens, n_acc,
                                                       bonus)
     cache = T.commit_cache(cfg, out["cache"], n_commit)
@@ -232,19 +401,26 @@ def spec_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
 
 def tree_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
                      cache, dcache, carry: SpecCarry, *, gamma: int = 3,
-                     width: int = 1, greedy: bool = True):
+                     width: int = 1, greedy: bool = True, key=None,
+                     keys=None):
     """One speculative round over a draft token tree: the contract of
     ``spec_decode_step`` (carry and telemetry are γ+1 wide), but the
     draft proposes ``width`` sibling chains, the target scores them all
     in one tree-masked verify (T = width·γ + 1 rows), the longest
     accepted root path wins, and only its K/V rows are compacted into
     chain order and committed.  Captures and carry hold the path only.
-    Width 1 is ``spec_decode_step`` bit for bit.
+    Width 1 is ``spec_decode_step`` bit for bit, greedy or sampled (the
+    same key discipline: branch 0 is the sampled chain).
 
     Returns the ``spec_decode_step`` dict plus ``sel`` (the winning
     branch); ``block`` is the flattened tree (B, T) and
     ``target_logits`` the path's (B, γ+1, V) rows."""
-    _require_greedy(greedy)
+    k_draft = k_ver = None
+    if not greedy:
+        if key is None and keys is None:
+            key = prng.key(0, carry.tokens.device)
+        k_draft, k_ver = _two_keys(key, keys)
+    per_lane = keys is not None
     b = carry.tokens.shape[0]
     ext_logits, ext_h, dcache = eagle.draft_extend(
         dcfg, dparams, tparams["embed"], dcache, carry.feats, carry.tokens,
@@ -253,16 +429,24 @@ def tree_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
     h_last = _take(ext_h, last)
     first_logits = _take(ext_logits, last)
 
-    toks_tree, _, dcache = eagle.draft_propose_tree(
+    toks_tree, logits_tree, dcache = eagle.draft_propose_tree(
         dcfg, dparams, tparams["embed"], dcache, h_last, first_logits, gamma,
-        width)
+        width, greedy=greedy, key=None if per_lane else k_draft,
+        keys=k_draft if per_lane else None)
 
     t0 = _take(carry.tokens, last)[:, None]
     block = torch.cat([t0, toks_tree.reshape(b, width * gamma)], dim=1)
     out = T.decode_step(cfg, tparams, cache, block, tree=(width, gamma))
     tl = out["logits"]
 
-    n_acc, sel, bonus = verify_tree_greedy(tl, toks_tree)
+    if greedy:
+        n_acc, sel, bonus = verify_tree_greedy(tl, toks_tree)
+    elif per_lane:
+        n_acc, sel, bonus = verify_tree_sample(None, tl, logits_tree,
+                                               toks_tree, keys=k_ver)
+    else:
+        n_acc, sel, bonus = verify_tree_sample(k_ver, tl, logits_tree,
+                                               toks_tree)
     committed, n_commit, accept_mask = _commit_tokens(
         _take(toks_tree, sel), n_acc, bonus)
     cache = T.commit_cache(cfg, compact_tree_cache(out["cache"], sel, gamma),
@@ -279,19 +463,38 @@ def tree_decode_step(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
             "block": block, "target_logits": tl[bidx, path]}
 
 
+def plain_decode_step(cfg: ModelConfig, tparams, cache, carry_token, *,
+                      greedy: bool = True, key=None, keys=None):
+    """Baseline autoregressive step (speculation off): one token a lane,
+    greedy, or drawn with the per-lane ``keys`` (B, 2) or the
+    batch-global ``key``.  Returns dict(token, cache, captures,
+    logits)."""
+    out = T.decode_step(cfg, tparams, cache, carry_token[:, None])
+    logits = out["logits"][:, 0]
+    if greedy:
+        nxt = logits.argmax(-1).to(torch.int32)
+    else:
+        nxt = _draw(keys if keys is not None else key, logits,
+                    keys is not None).to(torch.int32)
+    ones = torch.ones(carry_token.shape, dtype=torch.int32,
+                      device=carry_token.device)
+    cache = T.commit_cache(cfg, out["cache"], ones)
+    return {"token": nxt, "cache": cache, "captures": out["captures"],
+            "logits": logits}
+
+
 def plain_step_from_carry(cfg: ModelConfig, tparams, cache,
                           carry: SpecCarry, *, gamma: int = 3,
-                          greedy: bool = True):
+                          greedy: bool = True, key=None, keys=None):
     """Plain (non-speculative) decode step driven by the spec carry: t0
     is pair ``advance-1``.  Returns the ``spec_decode_step`` layout."""
-    _require_greedy(greedy)
     b, gp1 = carry.tokens.shape
     dev = carry.tokens.device
     t0 = _take(carry.tokens, carry.advance - 1)
-    out = T.decode_step(cfg, tparams, cache, t0[:, None])
-    nxt = out["logits"][:, 0].argmax(-1).to(torch.int32)
+    out = plain_decode_step(cfg, tparams, cache, t0, greedy=greedy, key=key,
+                            keys=keys)
+    nxt, cache = out["token"], out["cache"]
     ones = torch.ones((b,), dtype=torch.int32, device=dev)
-    cache = T.commit_cache(cfg, out["cache"], ones)
     caps1 = out["captures"]
     feats = torch.zeros((b, gp1, caps1.shape[-1]), dtype=caps1.dtype,
                         device=dev)
@@ -314,6 +517,11 @@ def ema_update(ema, ell, decay: float):
 class SuperstepState(NamedTuple):
     """Device-resident serving state threaded across supersteps.
 
+    PRNG: ``key_data`` (2,) is the engine's base key, never split; lane
+    b's key for a round is ``fold_in(fold_in(base, sid[b]),
+    step_idx[b])``, so a request's sampled stream depends only on its
+    admission ordinal and its own step count, never on the batch.
+
     ``cap_*`` (present only when deploy re-seeding is on) is a rolling
     per-lane ring of the (feature, token) pairs the draft cache ingested,
     enough to rebuild the last window's draft K/V rows under a freshly
@@ -322,6 +530,7 @@ class SuperstepState(NamedTuple):
     active: torch.Tensor      # (B,) bool
     gen_count: torch.Tensor   # (B,) int32 committed tokens (incl. first)
     accept_ema: torch.Tensor  # () f32 EMA of acceptance length E[l]
+    key_data: torch.Tensor    # (2,) int64 words of the base key
     sid: torch.Tensor         # (B,) int32 sampling-stream id per lane
     step_idx: torch.Tensor    # (B,) int32 per-lane decode-step counter
     cap_feats: Optional[torch.Tensor] = None   # (B, W, F) ring of pair feats
@@ -329,12 +538,13 @@ class SuperstepState(NamedTuple):
     cap_count: Optional[torch.Tensor] = None   # (B,) int32 pairs ingested
 
 
-def init_superstep_state(carry: SpecCarry, first_token, *,
+def init_superstep_state(carry: SpecCarry, first_token, key=None, *,
                          accept_ema: float = 1.0,
                          eos_id: Optional[int] = None, active0=None,
                          sids=None, capture_window: int = 0
                          ) -> SuperstepState:
-    """``active0`` (B,) bool masks slots born finished (default all on);
+    """``key`` (2,) the base sampling key (default ``key(0)``), copied;
+    ``active0`` (B,) bool masks slots born finished (default all on);
     ``sids`` the per-lane sampling-stream ids (default ``arange(B)``);
     ``capture_window`` > 0 allocates the deploy re-seed capture ring."""
     b, dev = first_token.shape[0], first_token.device
@@ -357,6 +567,8 @@ def init_superstep_state(carry: SpecCarry, first_token, *,
         carry=carry, active=active,
         gen_count=torch.ones((b,), dtype=torch.int32, device=dev),
         accept_ema=torch.tensor(accept_ema, dtype=torch.float32, device=dev),
+        key_data=(torch.zeros((2,), dtype=torch.int64, device=dev)
+                  if key is None else prng.key_data(key).to(dev).clone()),
         sid=sid, step_idx=torch.ones((b,), dtype=torch.int32, device=dev),
         **ring)
 
@@ -486,6 +698,9 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
          the pairs its draft extend ingested into it (``_ring_write``);
          a plain round ingests nothing.
 
+    Sampled (``greedy=False``): each round's lane keys are
+    ``fold_in(fold_in(state.key_data, sid), step_idx)``, as in JAX.
+
     A round with no active lane, and every round after it, is skipped
     (state and caches pass through, telemetry and signal slots zero).
     Returns dict(cache, dcache, state, rounds, host_syncs) where
@@ -493,7 +708,6 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
     signal buffers (``sig_feats``, ``sig_tokens``, ``sig_counts``)."""
     from repro_torch.kernels.extract_pack.ops import pack_signals
 
-    _require_greedy(greedy)
     gp1 = gamma + 1
     dev = state.active.device
     b = state.active.shape[0]
@@ -535,18 +749,23 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
             ys_all.append(ys)
             continue
 
+        keys = None
+        if not greedy:
+            base = st.key_data[None].expand(b, 2)
+            keys = sample.fold_in(sample.fold_in(base, st.sid), st.step_idx)
         if use_spec and tree_width:
             out = tree_decode_step(cfg, dcfg, tparams, dparams, cache, dcache,
                                    st.carry, gamma=gamma, width=tree_width,
-                                   greedy=greedy)
+                                   greedy=greedy, keys=keys)
             dcache = out["dcache"]
         elif use_spec:
             out = spec_decode_step(cfg, dcfg, tparams, dparams, cache, dcache,
-                                   st.carry, gamma=gamma, greedy=greedy)
+                                   st.carry, gamma=gamma, greedy=greedy,
+                                   keys=keys)
             dcache = out["dcache"]
         else:
             out = plain_step_from_carry(cfg, tparams, cache, st.carry,
-                                        gamma=gamma, greedy=greedy)
+                                        gamma=gamma, greedy=greedy, keys=keys)
         cache, carry, tokens = out["cache"], out["carry"], out["tokens"]
         n_commit, captures = out["n_commit"], out["captures"]
         cap_count = st.cap_count
@@ -586,7 +805,7 @@ def decode_superstep(cfg: ModelConfig, dcfg: ModelConfig, tparams, dparams,
             pack_signals(captures, tokens, pos < n_eff[:, None], out=slots[k])
         ys_all.append(ys)
         state = SuperstepState(
-            carry, active_after, gen_new, ema, st.sid,
+            carry, active_after, gen_new, ema, st.key_data, st.sid,
             torch.where(st.active, st.step_idx + 1, st.step_idx),
             st.cap_feats, st.cap_toks, cap_count)
 

@@ -207,14 +207,11 @@ class TideSystem:
                                          window=tide_cfg.signal_window)
         self.events = self.service.events
         # re-seeding only makes sense with the async deploy path, so
-        # sync mode zeroes it; the system's seed draws the draft and
-        # orders the trainer's batches, and the engine's would key only
-        # sampling, which the engine refuses
+        # sync mode zeroes it
         scfg = dataclasses.replace(
             tide_cfg.serving,
             reseed_window=(tide_cfg.reseed_window if tide_cfg.async_train
-                           else 0),
-            seed=ServingConfig.seed)
+                           else 0))
         self.engine = ServingEngine(
             cfg, params, self.dcfg, dparams, config=scfg,
             policy=scfg.make_policy(drafter),

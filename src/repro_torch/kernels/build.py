@@ -35,6 +35,7 @@ BUILD_SECONDS: Optional[float] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, pad, out, lse, B, S, Hq, Hk, D, causal, window, dtype, stream
     "repro_flash_attn": [_P] * 6 + [_I] * 8 + [_P],
@@ -58,6 +59,10 @@ _SIGNATURES = {
     "repro_linear_rows": [_P] * 4 + [_I] * 5 + [_P],
     # out: BM, BN, BK, STAGES of the bf16 tile
     "repro_linear_rows_tile": [_P],
+    # keys, counters, out, R, N, stream
+    "repro_threefry2x32": [_P] * 3 + [_I] * 2 + [_P],
+    # keys, logits, out, scratch, R, V, chunks, row_stride, stream
+    "repro_categorical_rows": [_P] * 4 + [_I] * 3 + [_L, _P],
 }
 
 

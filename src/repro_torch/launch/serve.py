@@ -15,8 +15,9 @@ JAX feeds the Eq. 5 gate an analytic TPU roofline, the port measures
 T(n) and D0 on the serving device (``measure_profile``).  Refused, each
 naming its ROADMAP queue 1 item: ``--dryrun`` (9), ``--fleet-replicas``
 and ``--trainer-endpoint`` (7), and through the engine's ``_unported``
-``--sample`` and ``--seed`` other than 0 (4), ``--prefill-chunk`` and
-``--commit eager`` (5), ``--preempt`` and ``--shed`` (6).
+``--prefill-chunk`` and ``--commit eager`` (5), ``--preempt`` and
+``--shed`` (6).  ``--sample`` serves per-request-keyed sampled decoding
+from the engine base seed ``--seed``, JAX's threefry streams.
 
 ``main(argv, device="cpu")`` runs on the CPU; the pieces it calls
 (``serve_corpus``, ``measure_profile``, ``tide_config``, ``serve``,
@@ -45,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--sample", action="store_true",
                     help="per-request-keyed sampled decoding instead of "
-                         "greedy argmax (not ported: item 4)")
+                         "greedy argmax")
     ap.add_argument("--superstep-rounds", type=int, default=8,
                     help="speculative rounds fused per superstep "
                          "dispatch (0 = per-step reference loop)")
@@ -54,8 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--accept-ema", type=float, default=0.9,
                     help="acceptance-length EMA decay for the Eq. 5 gate")
     ap.add_argument("--seed", type=int, default=0,
-                    help="engine base seed (per-request sampling streams; "
-                         "not ported: item 4)")
+                    help="engine base seed (per-request sampling streams)")
     ap.add_argument("--tree-width", type=int, default=0,
                     help=">=1: tree speculation — draft W top-k "
                          "branches, each gamma deep, verified in one "

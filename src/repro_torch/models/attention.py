@@ -214,14 +214,15 @@ def self_attention_train(cfg: ModelConfig, params, x):
 
 
 def decode_qkv(cfg: ModelConfig, params, x, lengths, pad=None, *,
-               tree=None):
+               tree=None, linear=torch.matmul):
     """The q, k, v of new tokens x (B, T, D) at cache positions
     lengths + [0..T), RoPE'd at positions lengths - pad + t (each tree
     slot's logical depth in place of t for ``tree=(W, γ)``).  The decode
     attention's rows, and the draft re-seed's
-    (``eagle.reseed_draft_rows_from_ring``), come from here."""
+    (``eagle.reseed_draft_rows_from_ring``), come from here.  ``linear``
+    computes the projections (``qkv_proj``)."""
     t = x.shape[1]
-    q, k, v = qkv_proj(params, x)
+    q, k, v = qkv_proj(params, x, linear)
     offs = (torch.arange(t, device=x.device) if tree is None
             else _tree_offsets_on(*tree, x.device))
     rope_pos = lengths[:, None].long() + offs[None]
@@ -233,7 +234,8 @@ def decode_qkv(cfg: ModelConfig, params, x, lengths, pad=None, *,
 
 
 def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
-                          lengths, pad=None, *, page_tbl=None, tree=None):
+                          lengths, pad=None, *, page_tbl=None, tree=None,
+                          linear=torch.matmul):
     """x: (B, T, D) new tokens at cache positions lengths + [0..T).
     RoPE positions are lengths - pad + t.  Writes the new K/V into the
     caches in place, then attends through the verify kernel.
@@ -245,10 +247,12 @@ def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
     Tree (``tree=(W, γ)``): the T = W·γ + 1 rows are a flattened draft
     tree; RoPE positions use each slot's logical depth
     (``tree_offsets``), the K/V write is unchanged (flat slots), and the
-    verify kernel runs its tree-causal mode."""
+    verify kernel runs its tree-causal mode.  ``linear`` computes the
+    q/k/v and output projections."""
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                      verify_attention_paged)
-    q, k, v = decode_qkv(cfg, params, x, lengths, pad, tree=tree)
+    q, k, v = decode_qkv(cfg, params, x, lengths, pad, tree=tree,
+                         linear=linear)
     if page_tbl is None:
         scatter_kv(k_cache, k, lengths)
         scatter_kv(v_cache, v, lengths)
@@ -263,4 +267,4 @@ def self_attention_decode(cfg: ModelConfig, params, x, k_cache, v_cache,
                                    pad, window=cfg.window,
                                    softcap=cfg.attn_logit_softcap,
                                    tree=tree or (0, 0))
-    return out_proj(params, o), (k_cache, v_cache)
+    return out_proj(params, o, linear), (k_cache, v_cache)

@@ -1,5 +1,5 @@
-"""TIDE serving engine, greedy chain or draft-tree speculation, dense or
-paged KV (port of ``repro/serving/engine.py``).
+"""TIDE serving engine, chain or draft-tree speculation, greedy or
+sampled, dense or paged KV (port of ``repro/serving/engine.py``).
 
 Continuous batching over B resident lanes: ``serve_stream`` keeps the
 target KV cache, the EAGLE draft cache and the superstep state on the
@@ -64,11 +64,18 @@ Differences from the JAX engine:
     K/V under the new draft, so its acceptance gain applies at once
     instead of at lane retirement.  The stepwise loop only swaps, as in
     JAX.
-  * Only these slices are ported.  Sampled decoding, chunked refill
-    prefill (and with it the paged prefix resume and the eager commit),
-    preemption and load shedding raise ``NotImplementedError`` naming
-    their ROADMAP item, and so does any other value of a knob that only
-    they read (``seed``, ``shed_queue_depth``).
+  * Sampled decoding (``greedy=False``, ``ServingConfig.seed``) draws
+    JAX's numbers: lane keys are ``fold_in(fold_in(key(seed), sid),
+    step)`` with ``sid`` the request's admission ordinal, in threefry
+    words (``core/prng``) hashed and drawn by the sampling kernels
+    (``kernels/sample``), so a sampled stream is per-request and
+    scheduling-invariant (stream, wave, stepwise, superstep, dense,
+    paged), and equal to JAX's token for token away from near-ties.
+  * Only these slices are ported.  Chunked refill prefill (and with it
+    the paged prefix resume and the eager commit), preemption and load
+    shedding raise ``NotImplementedError`` naming their ROADMAP item, and
+    so does any other value of a knob that only they read
+    (``shed_queue_depth``).
 """
 from __future__ import annotations
 
@@ -81,10 +88,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import bridge
-from repro_torch.core import eagle, paging, speculative as spec
+from repro_torch.core import eagle, paging, prng, speculative as spec
 from repro_torch.core.adaptive import AdaptiveDrafter
 from repro_torch.core.controller import Decision, TrainingController
 from repro_torch.core.signals import SignalExtractor
+from repro_torch.kernels.sample import ops as sample
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import MetricsRegistry
@@ -95,7 +103,8 @@ from repro_torch.serving.request import Request, inert_request
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.stats import P2Quantile, Ring
 
-# sampling-stream id for lanes that never emit (inert padding, free slots)
+# sampling-stream id for lanes that never emit (inert padding, free slots);
+# their draws are discarded
 INERT_SID = 0x7FFFFFFF
 
 _STATS_COUNTERS = (
@@ -223,9 +232,6 @@ def _unported(config: ServingConfig):
     """Raise for every configuration outside the ported slices, naming
     its ROADMAP queue 1 item."""
     checks = (
-        (not config.greedy, "greedy=False", 4, "sampled decoding"),
-        (config.seed != ServingConfig.seed, f"seed={config.seed}", 4,
-         "sampled decoding"),
         (config.prefill_chunk > 0, "prefill_chunk>0", 5,
          "chunked refill prefill"),
         (config.commit != "cohort", f"commit={config.commit!r}", 5,
@@ -343,6 +349,9 @@ class ServingEngine:
                 share_prefix=config.share_prefix)
         self.policy.speculation.on_transition = self._spec_transition
         self._register_obs_metrics()
+        # constant base key of the per-request sampling streams: lane keys
+        # are fold_in(fold_in(base, sid), step), sid the admission ordinal
+        self._base_key = prng.key(config.seed, self.device)
         self._sid_next = 0
         # every device-to-host copy the engine makes (round predicates,
         # telemetry pulls, first tokens)
@@ -368,19 +377,19 @@ class ServingEngine:
                               self._t(ell, torch.float32), self._ema)
         return float(self._host(out))
 
-    def _refill_core(self, cache, dcache, toks, pad, mask, src,
+    def _refill_core(self, cache, dcache, toks, pad, mask, src, sids,
                      tbl_rows=None):
         """Prefill a refill batch of R prompts and write their lanes into
         the live caches in place.  Paged: ``tbl_rows`` (R, n_tbl) holds
         each refill row's lane table row (all trash for a row no lane
         gathers), and the prefill writes the target K/V through it.
-        Returns (cache, dcache, the R-batch prefill carry, the R first
-        tokens)."""
+        ``sids`` (R,) are the rows' sampling-stream ids.  Returns (cache,
+        dcache, the R-batch prefill carry, the R first tokens)."""
         if self.paged:
             pre = self._prefill(toks, pad, cache, tbl_rows)
         else:
             pre = self._prefill(toks, pad)
-        first = self._pick(pre["logits"])
+        first = self._pick(pre["logits"], sids)
         rdc = eagle.seed_refill_cache(self.dcfg, self.dparams,
                                       self.params["embed"], pre["captures"],
                                       toks, pad, self.max_len)
@@ -396,7 +405,7 @@ class ServingEngine:
     def _refill_superstep(self, cache, dcache, state, max_new, toks, pad,
                           mask, src, budgets, sids, tbl_rows=None):
         cache, dcache, carry_r, first = self._refill_core(
-            cache, dcache, toks, pad, mask, src, tbl_rows)
+            cache, dcache, toks, pad, mask, src, sids, tbl_rows)
         state = spec.refill_superstep_state(
             state, carry_r, first, budgets, mask, src, eos_id=self.eos_id,
             sids=sids)
@@ -427,9 +436,20 @@ class ServingEngine:
             self.dcfg, dparams, self.params["embed"], dcache, *ring,
             block=self.gamma + 1)
 
-    def _pick(self, logits):
-        """Greedy token: the first maximal index, as JAX's argmax."""
-        return logits.argmax(-1).to(torch.int32)
+    def _lane_keys(self, sids, steps):
+        """Per-lane keys ``fold_in(fold_in(base, sid), step)``: the
+        stepwise loop's twin of the superstep's in-loop derivation, the
+        same two hashes.  sids, steps: (R,) device ints."""
+        base = self._base_key[None].expand(sids.shape[0], 2)
+        return sample.fold_in(sample.fold_in(base, sids), steps)
+
+    def _pick(self, logits, sids):
+        """A prefill's first token: greedy, the first maximal index (JAX's
+        argmax); sampled, drawn at step 0 of each row's stream."""
+        if self.greedy:
+            return logits.argmax(-1).to(torch.int32)
+        return sample.categorical_rows(
+            self._lane_keys(sids, torch.zeros_like(sids)), logits)
 
     # ------------------------------------------------------------- deploy
     def deploy_draft(self, dparams):
@@ -583,6 +603,7 @@ class ServingEngine:
             pad[i] = plen - len(r.prompt)
             toks[i, pad[i]:] = r.prompt
         toks_t, pad_t = self._t(toks, torch.int32), self._t(pad, torch.int32)
+        sids_t = self._t(self._slot_sids(requests), torch.int32)
         self._note_prefill_op(b, plen)
         if self.paged:
             # a refill of every lane: reserve the live ones (inert slots
@@ -596,11 +617,11 @@ class ServingEngine:
                 cache, dcache, toks_t, pad_t,
                 torch.ones((b,), dtype=torch.bool, device=self.device),
                 torch.arange(b, dtype=torch.int32, device=self.device),
-                self._tbl_rows(list(enumerate(requests)), b))
+                sids_t, self._tbl_rows(list(enumerate(requests)), b))
             self._publish_prefixes(self._prefix_entries(group, b, plen))
             return cache, dcache, carry, first
         pre = self._prefill(toks_t, pad_t)
-        first = self._pick(pre["logits"])
+        first = self._pick(pre["logits"], sids_t)
         dcache = eagle.init_draft_cache(self.dcfg, b, self.max_len,
                                         device=self.device)
         dcache = eagle.seed_prompt_pairs(self.dcfg, self.dparams,
@@ -890,7 +911,8 @@ class ServingEngine:
         max_new = self._t([r.max_new_tokens for r in reqs0], torch.int32)
         active0 = self._t([r.finish_t is None for r in reqs0], torch.bool)
         state = spec.init_superstep_state(
-            carry, first, accept_ema=self.accept_ema, eos_id=self.eos_id,
+            carry, first, self._base_key, accept_ema=self.accept_ema,
+            eos_id=self.eos_id,
             active0=active0, sids=self._t(self._slot_sids(reqs0),
                                           torch.int32),
             capture_window=self.reseed_window)
@@ -1053,11 +1075,14 @@ class ServingEngine:
         slots = list(sched.slots)
         active = np.array([r is not None and r.finish_t is None
                            for r in slots], bool)
+        # host twin of the superstep's (sid, step_idx) state
+        sids = self._slot_sids(slots)
+        steps = np.ones((b,), np.int32)
         while True:
             self._poll_deploy()
             admitted = self._retire_and_admit(sched, on_complete)
             if admitted:
-                toks, pad, mask, src, _, _ = self._refill_arrays(admitted)
+                toks, pad, mask, src, _, rsids = self._refill_arrays(admitted)
                 rows, width = toks.shape
                 self._note_prefill_op(rows, width)
                 cache, dcache, tbl_rows = self._map_refill(
@@ -1065,7 +1090,7 @@ class ServingEngine:
                 with self.tracer.span("refill", rows=int(rows),
                                       width=int(width)):
                     cache, dcache, carry_r, fdev = self._refill_core(
-                        cache, dcache, toks, pad, mask, src, tbl_rows)
+                        cache, dcache, toks, pad, mask, src, rsids, tbl_rows)
                     carry = spec.scatter_carry(carry, carry_r, mask, src)
                 self.stats.refills += len(admitted)
                 if self.paged:
@@ -1075,6 +1100,8 @@ class ServingEngine:
                 for row, (slot, req) in enumerate(admitted):
                     self._commit_first(req, int(first_np[row]))
                     active[slot] = req.finish_t is None
+                    sids[slot] = req.sid
+                    steps[slot] = 1
                 slots = list(sched.slots)
             if not active.any():
                 if sched.has_work():
@@ -1087,18 +1114,24 @@ class ServingEngine:
                 int(active.sum()), self.accept_ema)
             self.stats.dispatches += 1
             cache, dcache = self._ship_tables(cache, dcache)
+            keys = None
+            if not self.greedy:
+                keys = self._lane_keys(self._t(sids, torch.int32),
+                                       self._t(steps, torch.int32))
+            steps = np.where(active, steps + 1, steps)
             if use_spec:
                 with self.tracer.span("step.dispatch", spec=True):
                     if self.tree_width:
                         out = spec.tree_decode_step(
                             self.cfg, self.dcfg, self.params, self.dparams,
                             cache, dcache, carry, gamma=self.gamma,
-                            width=self.tree_width, greedy=self.greedy)
+                            width=self.tree_width, greedy=self.greedy,
+                            keys=keys)
                     else:
                         out = spec.spec_decode_step(
                             self.cfg, self.dcfg, self.params, self.dparams,
                             cache, dcache, carry, gamma=self.gamma,
-                            greedy=self.greedy)
+                            greedy=self.greedy, keys=keys)
                 cache, dcache, carry = (out["cache"], out["dcache"],
                                         out["carry"])
                 n_commit = self._host(out["n_commit"])
@@ -1117,7 +1150,7 @@ class ServingEngine:
                 with self.tracer.span("step.dispatch", spec=False):
                     out = spec.plain_step_from_carry(
                         self.cfg, self.params, cache, carry,
-                        gamma=self.gamma, greedy=self.greedy)
+                        gamma=self.gamma, greedy=self.greedy, keys=keys)
                 cache, carry = out["cache"], out["carry"]
                 n_commit = np.ones((b,), np.int32)
                 toks_np = self._host(out["tokens"])

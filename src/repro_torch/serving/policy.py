@@ -321,10 +321,11 @@ class ServingConfig:
     """Unified serving configuration: every engine/scheduler knob, plus
     the policy selection, in one dataclass (``ServingEngine(config=...)``).
 
-    The fields, their names and defaults, are JAX's.  ``greedy=False``,
-    ``prefill_chunk``, ``commit``, ``preempt`` and ``shed`` away from
-    their defaults name paths of the JAX engine that are not ported yet,
-    as do ``seed`` (it keys only sampling) and ``shed_queue_depth`` (it
+    The fields, their names and defaults, are JAX's.  ``greedy=False``
+    serves sampled decoding, each request's stream keyed from ``seed``
+    and its admission ordinal.  ``prefill_chunk``, ``commit``,
+    ``preempt`` and ``shed`` away from their defaults name paths of the
+    JAX engine that are not ported yet, as does ``shed_queue_depth`` (it
     bounds only the "queue" shed policy); the engine raises
     ``NotImplementedError`` for any of them (``_unported``)."""
 
@@ -336,7 +337,7 @@ class ServingConfig:
     superstep_rounds: int = 8
     eos_id: Optional[int] = None
     ema: float = 0.9
-    seed: int = 0                      # sampling keys (sampling: unported)
+    seed: int = 0                      # base key of the sampling streams
     # ---- admission / scheduling
     admission: str = "fifo"            # fifo | priority | deadline | wedf
     commit: str = "cohort"             # unported: eager chunk commit

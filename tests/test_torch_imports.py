@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, and the serving
-engine refuses to fall back to the CPU on its own."""
+engine refuses to fall back to the CPU on its own.  The engine refuses
+the configurations outside the ported slices and serves the rest:
+sampled decoding (``greedy=False``, ``seed``) is served."""
 import ast
 import pathlib
 
@@ -50,7 +52,10 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/data/workloads.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/train.py",
-                 "src/repro_torch/training/trainer.py"):
+                 "src/repro_torch/training/trainer.py",
+                 "src/repro_torch/core/prng.py",
+                 "src/repro_torch/kernels/sample/ops.py",
+                 "src/repro_torch/kernels/sample/ref.py"):
         assert want in names
 
 
@@ -79,6 +84,8 @@ def test_engine_without_device_needs_cuda(monkeypatch):
      "chunked refill prefill"),
 ])
 def test_engine_unported_paths_raise(kw, item):
+    """The unported paths raise naming their item; sampled decoding
+    (ROADMAP queue 1 item 4, once refused here) is served."""
     from repro_torch.configs import get
     from repro_torch.core import eagle
     from repro_torch.models import transformer as T
@@ -88,6 +95,10 @@ def test_engine_unported_paths_raise(kw, item):
     dcfg = eagle.draft_config(cfg)
     params = T.init(cfg, 0, device="cpu")
     dparams = eagle.draft_init(dcfg, 1, device="cpu")
+    if item == "sampled decoding":
+        _serves(ServingEngine(cfg, params, dcfg, dparams, device="cpu",
+                              config=ServingConfig(**kw)), kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(cfg, params, dcfg, dparams, device="cpu",
                       config=ServingConfig(**kw))
@@ -101,10 +112,11 @@ def test_engine_unported_paths_raise(kw, item):
     ("ServingPolicy", dict(preemption=object())),
 ])
 def test_overload_and_paging_knobs_are_not_accepted(cls, kw):
-    """Preemption, shedding and sampling have no path in the port yet.
-    Their ``ServingConfig`` knobs exist with JAX's defaults, and an
-    engine refuses any other value, naming the ROADMAP item, rather than
-    ignore it; the policy slot does not exist."""
+    """Preemption and shedding have no path in the port yet.  Their
+    ``ServingConfig`` knobs exist with JAX's defaults, and an engine
+    refuses any other value, naming the ROADMAP item, rather than ignore
+    it; the policy slot does not exist.  ``seed``, refused until
+    sampling was ported, now reaches the engine's base key."""
     from repro_torch.serving import policy
     if cls == "ServingPolicy":
         with pytest.raises(TypeError):
@@ -118,7 +130,24 @@ def test_overload_and_paging_knobs_are_not_accepted(cls, kw):
     dcfg = eagle.draft_config(cfg)
     params = T.init(cfg, 0, device="cpu")
     dparams = eagle.draft_init(dcfg, 1, device="cpu")
-    item = "item 4: sampled decoding" if "seed" in kw else "item 6: overload"
-    with pytest.raises(NotImplementedError, match=item):
+    if "seed" in kw:
+        _serves(ServingEngine(cfg, params, dcfg, dparams, device="cpu",
+                              config=policy.ServingConfig(**kw)), kw)
+        return
+    with pytest.raises(NotImplementedError, match="item 6: overload"):
         ServingEngine(cfg, params, dcfg, dparams, device="cpu",
                       config=policy.ServingConfig(**kw))
+
+
+def _serves(eng, kw):
+    """The engine took the configuration's greedy/seed (its base key is
+    ``key(seed)``) and serves two requests to their budgets."""
+    from repro_torch.core import prng
+    from repro_torch.serving.request import Request
+    assert eng.greedy == kw.get("greedy", True)
+    assert eng.config.seed == kw.get("seed", 0)
+    assert torch.equal(eng._base_key, prng.key(kw.get("seed", 0)))
+    reqs = [Request(prompt=[3, 1, 4, 1, 5], max_new_tokens=6),
+            Request(prompt=[2, 7, 1], max_new_tokens=4)]
+    eng.serve_stream(iter(reqs))
+    assert [len(r.generated) for r in reqs] == [6, 4]

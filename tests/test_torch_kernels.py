@@ -1313,3 +1313,74 @@ def test_cuda_attention_train_autograd(cuda, dtype):
     assert _rel_l2(q.grad, gq1) < tol
     assert _rel_l2(k.grad, gk1.float() + gk2.float()) < tol
     assert _rel_l2(v.grad, gv1.float() + gv2.float()) < tol
+
+
+# ------------------------------------- sampling kernels (card only)
+def _words(shape, dev, seed):
+    """Random uint32 words in int64, high bits set too."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 2 ** 32, shape, generator=g,
+                         dtype=torch.int64).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4, 151552])
+def test_cuda_threefry2x32_vs_plain(cuda, n):
+    """The hash kernel's words equal the plain version's bit for bit, at
+    R 8 and the main path's counter counts (one fold-in, γ, γ + 1, a
+    vocabulary)."""
+    from repro_torch.kernels.sample.ops import threefry2x32
+    from repro_torch.kernels.sample.ref import threefry2x32_ref
+    keys = _words((8, 2), cuda, 1)
+    ctr = _words((8, n, 2), cuda, 2)
+    n0 = threefry2x32.launches
+    got = threefry2x32(keys, ctr)
+    torch.cuda.synchronize()
+    assert threefry2x32.launches == n0 + 1
+    assert torch.equal(got, threefry2x32_ref(keys, ctr))
+    assert got.dtype == torch.int64 and int(got.min()) >= 0
+    assert int(got.max()) < 2 ** 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("peaked", [False, True], ids=["random", "peaked"])
+@pytest.mark.parametrize("r,v,stride", [(8, 151552, 0), (32, 151552, 0),
+                                        (3, 512, 0), (5, 2049, 0),
+                                        (4, 4097, 4097), (1, 1, 0)])
+def test_cuda_categorical_rows_vs_plain(cuda, r, v, stride, peaked):
+    """The fused draw picks the plain version's index, except on rows
+    whose top two of logits + gumbel lie within 4·eps32·max|z| (none
+    expected); peaked logits put the mass on 8 tokens and the rest at
+    -30 (the Leviathan check's shape)."""
+    from repro_torch.kernels.sample.ops import categorical_rows
+    from repro_torch.kernels.sample.ref import (near_tie_rows,
+                                                perturbed_rows_ref)
+    keys = _words((r, 2), cuda, 3)
+    lg = _randn((r, v), "float32", cuda, 4) * 3
+    if peaked:
+        lg = torch.full_like(lg, -30.0)
+        lg[:, :8] = _randn((r, min(8, v)), "float32", cuda, 5)[:, :v]
+    n0 = categorical_rows.launches
+    got = categorical_rows(keys, lg, row_stride=stride)
+    torch.cuda.synchronize()
+    assert categorical_rows.launches == n0 + 1
+    z = perturbed_rows_ref(keys, lg, stride)
+    want = z.argmax(-1).to(torch.int32)
+    bad = (got != want) & ~near_tie_rows(z)
+    assert not bad.any(), (got[bad], want[bad])
+    assert got.dtype == torch.int32
+
+
+@pytest.mark.gpu
+def test_cuda_sampling_wrappers_refuse(cuda):
+    from repro_torch.kernels.sample.ops import categorical_rows, threefry2x32
+    keys = _words((2, 2), cuda, 6)
+    with pytest.raises(ValueError):
+        categorical_rows(keys, torch.zeros((2, 8), dtype=torch.bfloat16,
+                                           device=cuda))
+    with pytest.raises(ValueError):
+        categorical_rows(keys[:1], torch.zeros((2, 8), device=cuda))
+    with pytest.raises(ValueError):
+        threefry2x32(keys.to(torch.int32), _words((2, 3, 2), cuda, 7))
+    with pytest.raises(ValueError):
+        threefry2x32(keys, _words((3, 3, 2), cuda, 7))

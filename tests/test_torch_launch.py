@@ -6,12 +6,13 @@ fp32, fixed seeds; JAX is the oracle).
   field for field (``dataclasses.asdict``, ``completion_sink`` aside) for
   every row of tests/test_config_mirror.py's flag table; each refused
   flag raises ``NotImplementedError`` naming its ROADMAP queue 1 item
-  before any work; ``main(..., device="cpu")`` serves 8 requests to
-  their budgets and prints JAX's report; with a fixed
-  ``LatencyProfile`` in place of the measured one (JAX's
+  before any work, and ``--sample`` / ``--seed`` (item 4, once refused)
+  serve with their values in the engine; ``main(..., device="cpu")``
+  serves 8 requests to their budgets and prints JAX's report; with a
+  fixed ``LatencyProfile`` in place of the measured one (JAX's
   ``analytic_tpu_profile`` replaced by the same numbers), the port's
   pieces (``serve_corpus``, ``serve``) on JAX's pretrained target and
-  initial draft give JAX's ``main``'s greedy streams, its
+  initial draft give JAX's ``main``'s streams, greedy or sampled, its
   ``spec_steps``, cycles, deploys, parks and resumes exactly, and the
   same summary keys; ``measure_profile`` times finite, positive T(n)
   and D0 on the CPU.
@@ -134,7 +135,17 @@ def test_config_from_args_matches_jax(argv):
     (["--shed", "queue", "--shed-queue-depth", "9"], "item 6"),
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_serve_refusals_name_their_item(argv, item, monkeypatch):
-    """Refused before any weight is made (``T.init`` would raise)."""
+    """Refused before any weight is made (``T.init`` would raise).  The
+    item 4 flags, refused until sampling was ported, serve: the engine
+    takes ``--sample`` as ``greedy=False`` and ``--seed`` as its seed."""
+    if item == "item 4":
+        args = serve.build_parser().parse_args(SERVE_ARGV + argv)
+        sys_, done = serve.main(SERVE_ARGV + argv, device="cpu")
+        assert sys_.engine.greedy is not args.sample
+        assert sys_.engine.config.seed == args.seed
+        assert len(done) == 8 and all(len(r.generated) == 32 for r in done)
+        return
+
     def no_init(*a, **kw):
         raise AssertionError("refusal came after the weights were made")
     monkeypatch.setattr(T, "init", no_init)
@@ -234,8 +245,22 @@ PROFILES = {"always_on": ([1, 2, 4, 8, 16], [2.0] * 5, 0.0),
 
 @pytest.mark.parametrize("which", sorted(PROFILES))
 def test_serve_pieces_match_jax_main(which, monkeypatch, capsys):
+    _serve_pieces_match_jax_main(which, [], monkeypatch, capsys)
+
+
+def test_sampled_serve_pieces_match_jax_main(monkeypatch, capsys):
+    """``--sample --seed 3``: the port's sampled streams are JAX's main's
+    token for token (every draft drawn, every acceptance and residual
+    draw with JAX's threefry keys), through its training cycles."""
+    sys_ = _serve_pieces_match_jax_main(
+        "always_on", ["--sample", "--seed", "3"], monkeypatch, capsys)
+    assert sys_.engine.greedy is False and sys_.engine.config.seed == 3
+
+
+def _serve_pieces_match_jax_main(which, extra, monkeypatch, capsys):
     sizes, t_ms, d0 = PROFILES[which]
-    argv = SERVE_ARGV + ["--spec-park", "2", "--spec-probe-interval", "2"]
+    argv = SERVE_ARGV + ["--spec-park", "2", "--spec-probe-interval",
+                         "2"] + extra
     seen = {}
 
     class Captured(jtide.TideSystem):
@@ -290,3 +315,4 @@ def test_serve_pieces_match_jax_main(which, monkeypatch, capsys):
         block = text.split("== TIDE summary")[1].split("accept_len trend")[0]
         return re.findall(r"^  (\w+): ", block, re.M)
     assert keys(port_out) == keys(jax_out)
+    return sys_

@@ -628,6 +628,16 @@ def test_requests_from_trace(tiny):
 ], ids=["fleet", "commit", "preempt", "shed_expired", "shed_queue",
         "shed_queue_depth", "sampling_seed"])
 def test_tide_unported_configs_raise(tiny, kw, item):
+    """Each unported configuration raises naming its item; sampled
+    decoding (item 4, once refused here) is served: the system's greedy
+    flag and seed reach the engine, and a wave reaches its budgets."""
+    if item == "item 4":
+        sys_ = _port_system(tiny, **kw)
+        assert sys_.engine.greedy is False
+        assert sys_.engine.config.seed == 5
+        done = sys_.run(iter(tiny["waves"][:1]), max_new_tokens=8)
+        assert [len(r.generated) for r in done] == [8, 8]
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         _port_system(tiny, **kw)
 
@@ -637,11 +647,11 @@ def test_tide_unported_configs_raise(tiny, kw, item):
 def test_tide_inert_knobs_are_accepted(tiny, kw):
     """Sync mode zeroes ``reseed_window`` before building the engine
     (JAX's ``core/tide.py:309-312``).  The system's ``seed`` orders the
-    trainer's batches (and draws a default draft); the engine, whose
-    seed would key only sampling, gets the default."""
+    trainer's batches (and draws a default draft), and the engine gets
+    it as its sampling seed, as JAX's does."""
     sys_ = _port_system(tiny, **kw)
     assert sys_.engine.config.reseed_window == 0
-    assert sys_.engine.config.seed == 0
+    assert sys_.engine.config.seed == sys_.tcfg.seed == kw.get("seed", 0)
     assert sys_.service.seed == sys_.tcfg.seed == kw.get("seed", 0)
 
 
