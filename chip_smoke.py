@@ -9,7 +9,8 @@ Phases, one JSON line each:
            src/repro_torch/csrc (into build/repro_torch/).
   kernels  each CUDA kernel against its plain PyTorch version at the
            glm4-9b main-path shapes (batch 8, prompt 512, cache 1024,
-           lanes with left pad; verify at T = 1, 4 and 511), held per
+           lanes with left pad; verify at T = 1, 4 and 511, and 128 against a
+           512-row cache: the chunk case), held per
            element at rtol = atol = 2e-2 (bf16) on the rows that see a
            key, extract_pack exactly (called as decode_superstep calls
            it, into a slot of (K, B, T, F) signal buffers; path
@@ -40,7 +41,12 @@ Phases, one JSON line each:
            prefill rows name their path (prefill_path:
            tensor_core_bf16) and the error of a one-bf16-P emulation
            (p_bf16_rel_l2_emulated), the verify rows theirs
-           (verify_path: tensor_core_bf16, asserted); every row with a
+           (verify_path: tensor_core_bf16, asserted).  The verify row
+           also holds the chunk case (chunk_case): T = 128 query rows a
+           lane against a 512-row cache, pads up to 400, a chunked
+           refill's continuation on glm4-9b, against its plain version,
+           counted at T = 128 (launches_at_t), its pad_shift_equal on
+           kind verify128, timed like the others; every row with a
            library call gets ms_over_library_ms.  linear_rows, the
            prefill's row-invariant matrix product (path wgmma_tma: the
            wgmma kernel fed by TMA; its tile, read from the built
@@ -115,7 +121,8 @@ Phases, one JSON line each:
            logits agree with the CPU's.  Sampled (seed 5, batch 4): the
            chain's streams at K 8, K 0, in waves of 4 and paged are
            equal, and tree W = 2's at K 8 and K 0; every sampling kernel
-           launches.
+           launches.  Chunked refill prefill (chunk 32), greedy and
+           sampled: K 8, K 0, waves of 4 and paged equal.
   serve    glm4-9b at full width and depth, random bf16 weights from a
            seeded generator: ServingEngine (batch 8, max_len 1024,
            gamma 3, K=8, greedy, no drafter) serves 16 requests (prompts
@@ -170,6 +177,28 @@ Phases, one JSON line each:
            Each prints tokens/s, superstep ms, host syncs per superstep,
            mean accepted length and launches beside the greedy serve's
            (chain or tree W = 4) from this run.
+  chunked_serve  chunked refill prefill (prefill_chunk 128: prompts of
+           64-512 make 1-4 chunks) on the serve's configuration, weights
+           and 16 requests, four times: dense with cohort commit, dense
+           with eager commit, paged (page 16) at 512 pages and at 256
+           (admission defers, so the pipelines group other requests).
+           Every request reaches its budget; the four serves' streams
+           are equal; each equals the one-shot serve's or departs only
+           where the target's top-2 gap is within BF16_TOL of its top
+           logit; no prefill op is wider than 128 (the one-shot serve's
+           widest is reported); the verify kernel's launches at T = 128
+           equal 40 x the target continuations plus the draft's extends
+           at that width (from the chunk ops the serve ran); every
+           kernel of the path launches; no page leaks.  Each prints
+           tokens/s, superstep ms, host syncs per superstep, TTFT p50,
+           prefill_chunks, the prefill gap tokens, peak memory and
+           launches beside the one-shot serve's.  After the dense cohort
+           serve, one pipeline of two 512-wide prompts against the
+           one-shot prefill's rows on the valid region: bit for bit, or
+           relative L2 below REL_L2_TOL with the first departing op.
+           After the 512-page serve, its longest prompt alone, twice:
+           the second pipeline resumes from the shared prefix pages
+           (fewer chunks, tokens saved) with the same stream.
   train    the draft's training step (the paper loop's step 8):
            DraftTrainer.train_cycle on the 16 63-token signal windows
            the serve phase's SignalExtractor collected (drained right
@@ -253,7 +282,9 @@ sampling kernels, the dense sampled serve) that runs it, the launch
 phase's count
 (launch_phase_launches) and its ms,
 device_ms and host_ms), the nvidia-smi
-line, and last ``{"ok": true, "device": {...}}``.  Any failure raises
+line, and last ``{"ok": true, "device": {...}}``.  Each kernel row also
+carries its launches in the dense cohort chunked serve
+(chunked_serve_launches).  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
 at once.
 """
@@ -470,6 +501,7 @@ def phase_kernels():
                              iters=5),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=cuda_ms(lambda: _sdpa(qt, kc, vc, vmask))))
+    cases.append(_chunk_verify_case(rnd, pad))
     head = cases[0]
     vpath = verify_route(bf, D)
     assert vpath == "tensor_core_bf16", vpath
@@ -647,6 +679,57 @@ def phase_kernels():
     emit({"phase": "kernels", "profiler_retries": device_ms.retries,
           "kernels": rows})
     return rows
+
+
+# a chunked refill's continuation on glm4-9b (chunked_serve): T = C =
+# 128 query rows a lane against the pipeline's 512-row staging cache
+CHUNK = dict(C=128, S=512)
+
+
+def _chunk_verify_case(rnd, pad) -> dict:
+    """verify_attention at the chunk shape: B 8, T 128 against a 512-row
+    cache, pads up to 400 (rows before a lane's pad see no key and must
+    be zero), held against its plain version on the rows that see a key;
+    the lane's rows at the chunk shape do not move with its pad or batch
+    (``pad_shift_equal``, kind ``verify128``)."""
+    from repro_torch.kernels.verify_attn.ops import verify_attention
+    from repro_torch.kernels.verify_attn.ref import (verify_attention_ref,
+                                                     verify_mask)
+    from repro_torch.obs.cobatch import lane_inputs, pad_shift_departure
+    dev = pad.device
+    B, HQ, HK, D = (GLM[k] for k in ("B", "HQ", "HK", "D"))
+    t, smax = CHUNK["C"], CHUNK["S"]
+    kc, vc = rnd(B, smax, HK, D), rnd(B, smax, HK, D)
+    qt = rnd(B, t, HQ, D)
+    ln = torch.tensor([128, 256, 384, 136, 264, 200, 384, 0],
+                      dtype=torch.int32, device=dev)
+    pd = pad
+    n128 = verify_attention.launches_at_t[t]
+    o = verify_attention(qt, kc, vc, ln, pd)
+    r = verify_attention_ref(qt, kc, vc, ln, pd)
+    torch.cuda.synchronize()
+    assert verify_attention.launches_at_t[t] == n128 + 1, "T=128 uncounted"
+    assert torch.isfinite(o).all(), "verify_attention T=128 non-finite"
+    qpos = ln[:, None] + torch.arange(t, device=dev)[None, :]
+    live = qpos >= pd[:, None]
+    assert not o[~live].any(), "rows that see no key must be zeros"
+    e, rel_t = hold(o[live], r[live], "verify_attention T=128")
+    nvis = (qpos - pd[:, None] + 1).clamp(min=0).sum().item() * HQ
+    span = (ln + t - pd).clamp(min=0).sum().item()
+    nbytes = 2 * 2 * qt.numel() + 2 * 2 * span * HK * D + 8 * B
+    b_ms, b_by = bound(nbytes, 4.0 * nvis * D)
+    vmask = verify_mask(ln, t, smax, pd)
+    lane = lane_inputs(150, HQ, HK, D, torch.bfloat16, dev, 81)
+    moved = pad_shift_departure("verify128", lane, extras=(0, 40))
+    assert moved is None, f"verify128: a lane's rows moved at {moved}"
+    return dict(
+        T=t, cache=smax, chunk_case=True, max_abs_err=e, rel_l2_err=rel_t,
+        pad_shift_equal=True,
+        **kernel_ms(partial(verify_attention, qt, kc, vc, ln, pd)),
+        plain_ms=cuda_ms(lambda: verify_attention_ref(qt, kc, vc, ln, pd),
+                         iters=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: _sdpa(qt, kc, vc, vmask)))
 
 
 # the launch phase's serve (the serve CLI's configuration): batch 4,
@@ -1692,6 +1775,7 @@ def phase_ladder():
     assert all(v == ref for v in tree.values()), \
         "tree W=2: stepwise / superstep / stream / wave streams differ"
     sampled = _sampled_ladder(cfg, params, dcfg, dparams)
+    chunked = _chunked_ladder(cfg, params, dcfg, dparams, streams[8])
     # the card's prefill against the CPU's (plain kernels) on one prompt
     toks = torch.tensor([np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=48).tolist()], dtype=torch.int32)
@@ -1708,7 +1792,7 @@ def phase_ladder():
           "tree2_stepwise_superstep_stream_wave_equal": True,
           "tree2_requests_equal_chain": sum(
               a == b for a, b in zip(ref, streams[8])),
-          "sampled": sampled,
+          "sampled": sampled, "chunked": chunked,
           "prefill_logits_rel_err_vs_cpu": rel,
           "argmax_equal": bool(gpu.argmax() == cpu.argmax())})
     del params, dparams
@@ -1762,6 +1846,53 @@ def _sampled_ladder(cfg, params, dcfg, dparams) -> dict:
                 a == b for a, b in zip(runs["tree2_K8"], runs["K8"]))}
 
 
+def _chunked_ladder(cfg, params, dcfg, dparams, one_shot) -> dict:
+    """Chunked refill prefill (chunk 32: the ladder's prompts of 16-128
+    tokens make 1-4 chunks), greedy and sampled (seed 5), held exactly:
+    K 8 == K 0 == waves of 4, paged (page 16) == dense; the greedy
+    streams against the one-shot ladder's (reported: chunked and one-shot
+    rows differ in the last bits, so a near-tie may flip)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    dev = torch.device("cuda")
+    out = {}
+    for greedy in (True, False):
+        runs = {}
+        for name, k, mode, kw in (("K8", 8, "stream", {}),
+                                  ("K0", 0, "stream", {}),
+                                  ("waves4", 8, "wave", {}),
+                                  ("paged", 8, "stream",
+                                   {"page_size": GLM["P"]})):
+            conf = ServingConfig(batch_size=4, max_len=256, gamma=3,
+                                 superstep_rounds=k, greedy=greedy, seed=5,
+                                 prefill_chunk=32, **kw)
+            eng = ServingEngine(cfg, params, dcfg, dparams, config=conf,
+                                device=dev)
+            reqs = _requests(np.random.default_rng(3), 8, 16, 128, 24,
+                             cfg.vocab_size)
+            if mode == "wave":
+                eng.serve_wave(reqs[:4])
+                eng.serve_wave(reqs[4:])
+            else:
+                eng.serve_stream(iter(reqs))
+            assert eng.stats.prefill_chunks > 0 and \
+                eng.stats.prefill_op_width.max <= 32
+            runs[name] = [list(r.generated) for r in reqs]
+            assert all(len(s_) == 24 for s_ in runs[name])
+            if eng.paged:
+                eng.release_prefix_cache()
+                eng.allocator.assert_clean()
+            del eng
+        kind = "greedy" if greedy else "sampled"
+        for name in ("K0", "waves4", "paged"):
+            assert runs[name] == runs["K8"], f"chunked {kind} {name} != K8"
+        out[kind] = {"K8_K0_waves_paged_equal": True}
+        if greedy:
+            out[kind]["requests_equal_one_shot"] = sum(
+                a == b for a, b in zip(runs["K8"], one_shot))
+    return out
+
+
 def _kernel_fns():
     from repro_torch.kernels.extract_pack.ops import pack_signals
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
@@ -1810,6 +1941,23 @@ def _timed_serve(eng, reqs):
 
     eng._prefill = timing("prefill", eng._prefill)
     eng._superstep = timing("superstep", eng._superstep)
+    chunks = []
+    if eng.prefill_chunk:
+        # a chunk op (unfused, or fused with its commit): [kind, rows,
+        # width, ms]; a continuation's width is its T
+        def chunk_timing(kind, fn, toks_arg):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                chunks.append([kind, *a[toks_arg].shape,
+                               (time.perf_counter() - s) * 1e3])
+                return out
+            return run
+        eng._chunk_start_core = chunk_timing("start", eng._chunk_start_core,
+                                             0)
+        eng._chunk_cont_core = chunk_timing("cont", eng._chunk_cont_core, 2)
     cfg = eng.cfg
     fns = _kernel_fns()
     torch.cuda.reset_peak_memory_stats()
@@ -1817,11 +1965,14 @@ def _timed_serve(eng, reqs):
         fn.launches = 0
         if hasattr(fn, "tree_launches"):
             fn.tree_launches = 0
+    fns["verify_attention"].launches_at_t.clear()
     eng.serve_stream(iter(reqs))
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in fns.items()}
     for name in ("verify_attention", "verify_attention_paged"):
         launches[name + "_tree"] = fns[name].tree_launches
+    launches["verify_attention_by_t"] = dict(
+        fns["verify_attention"].launches_at_t)
     assert all(len(r.generated) == 64 and r.finish_t is not None
                for r in reqs), "a request did not finish with its tokens"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
@@ -1839,12 +1990,21 @@ def _timed_serve(eng, reqs):
         "supersteps": st.dispatches, "rounds": st.steps,
         "spec_rounds": st.spec_steps,
         "mean_accept_len": st.accept_len,
+        "ttft_p50_s": st.ttft_p50,
+        "prefill_op_width_max": st.prefill_op_width.max,
+        "prefill_gap_tokens": {"n": st.prefill_gap_tokens.n,
+                               "max": st.prefill_gap_tokens.max,
+                               "mean": st.prefill_gap_tokens.mean},
         "host_syncs": eng.host_syncs,
         "host_syncs_per_superstep": eng.host_syncs / max(st.dispatches, 1),
         "tree_width": eng.tree_width,
         "signal_windows": eng.extractor.store.total_added,
         "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches}
+    if eng.prefill_chunk:
+        summary.update(prefill_chunks=st.prefill_chunks,
+                       prefill_lane_rounds=st.prefill_lane_rounds,
+                       chunk_ops=chunks)
     return summary, launches
 
 
@@ -2217,6 +2377,205 @@ def phase_sampled_serve(dense_eng, dense, tree_greedy):
         else:
             row["streams_differing_from_chain"] = sum(
                 a != b for a, b in zip(got, streams))
+        emit(row)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def _chunk_expected_t128(n_layers: int, ops) -> int:
+    """verify_attention launches at T = 128 that a chunked serve's chunk
+    ops make: a continuation of width 128 launches it in each target
+    layer and once in the draft's extend; a first chunk of width 128
+    once, in the draft's extend (its target side is the prefill
+    kernel)."""
+    t = CHUNK["C"]
+    conts = sum(1 for kind, _, w, _ in ops if kind == "cont" and w == t)
+    starts = sum(1 for kind, _, w, _ in ops if kind == "start" and w == t)
+    return n_layers * conts + conts + starts
+
+
+def _staging_vs_one_shot(eng) -> dict:
+    """One pipeline of two prompts of one width bucket (509 and 505
+    tokens: width 512, pads 3 and 7, four chunks of 128) driven to its
+    end on a chunked engine, against the one-shot prefill and draft seed
+    of the same padded batch, on the valid region: equal bit for bit, or
+    within REL_L2_TOL (relative L2 per leaf) with the first departing op
+    named (target K/V by layer, then the draft's K/V, the logits)."""
+    from repro_torch.core import eagle
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(11)
+    reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab_size, size=n)
+                    .tolist(), max_new_tokens=1) for n in (509, 505)]
+    for i, r in enumerate(reqs):
+        r.sid = i
+    pl = eng._make_pipeline(list(enumerate(reqs)))
+    while not pl.done:
+        eng._advance_pipeline(pl)
+    pre = T.prefill(eng.cfg, eng.params, pl.toks, max_len=eng.max_len,
+                    pad=pl.pad)
+    rdc = eagle.seed_refill_cache(eng.dcfg, eng.dparams,
+                                  eng.params["embed"], pre["captures"],
+                                  pl.toks, pl.pad, eng.max_len)
+    torch.cuda.synchronize()
+    w = pl.width
+    dlen = int(pl.dcache["lengths"][0])
+    assert (pl.dcache["lengths"] == rdc["lengths"]).all()
+    pads = [int(p) for p in pl.pad]
+    pairs = []
+    for layer in range(eng.cfg.num_layers):
+        for leaf in ("k", "v"):
+            pairs.append((f"target {leaf} layer {layer}",
+                          [pl.cache["body"]["pos0"][leaf][layer, i, p:w]
+                           for i, p in enumerate(pads)],
+                          [pre["cache"]["body"]["pos0"][leaf][layer, i, p:w]
+                           for i, p in enumerate(pads)]))
+    for leaf in ("k", "v"):
+        pairs.append((f"draft {leaf}",
+                      [pl.dcache[leaf][i, p:dlen] for i, p in enumerate(pads)],
+                      [rdc[leaf][i, p:dlen] for i, p in enumerate(pads)]))
+    pairs.append(("logits", [pl.logits], [pre["logits"]]))
+    pairs.append(("last capture", [pl.caps_last], [pre["captures"][:, -1]]))
+    first, worst, equal = None, 0.0, True
+    for name, got, want in pairs:
+        got, want = torch.cat([g.reshape(-1) for g in got]).float(), \
+            torch.cat([x.reshape(-1) for x in want]).float()
+        if torch.equal(got, want):
+            continue
+        equal = False
+        rel = float((got - want).norm() / want.norm())
+        worst = max(worst, rel)
+        if first is None:
+            pos = None
+            if name.startswith("target"):
+                layer = int(name.rsplit(" ", 1)[1])
+                leaf = name.split()[1]
+                for i, p in enumerate(pads):
+                    d = (pl.cache["body"]["pos0"][leaf][layer, i, p:w]
+                         != pre["cache"]["body"]["pos0"][leaf][layer, i, p:w])
+                    idx = d.reshape(d.shape[0], -1).any(1).nonzero()
+                    if idx.numel():
+                        pos = p + int(idx[0])
+                        break
+            first = {"op": name, "position": pos, "rel_l2": rel}
+        assert rel < REL_L2_TOL, f"staging {name} rel L2 {rel} vs one-shot"
+    first_tok = bool(torch.equal(pl.logits.argmax(-1),
+                                 pre["logits"].argmax(-1)))
+    return {"rows": pl.rows, "width": w, "chunks": -(-w // pl.chunk),
+            "first_width": pl.first_width, "pads": pads,
+            "equal_bitwise": equal, "worst_rel_l2": worst,
+            "first_departing": first, "first_tokens_equal": first_tok}
+
+
+def _prefix_resume(eng, reqs, streams) -> dict:
+    """On a paged chunked engine after its serve: the serve's longest
+    prompt served alone twice (8 new tokens).  The second admission's
+    pipeline finds all its rows' prefix pages in the registry and
+    gathers the chunks they cover (``_chunk_resume``) instead of
+    prefilling them: fewer chunks, prefix tokens saved, and the stream
+    of the first and of the serve."""
+    from repro_torch.serving.request import Request
+    i = max(range(len(reqs)), key=lambda j: len(reqs[j].prompt))
+    st = eng.stats
+    runs = []
+    for _ in range(2):
+        c0, s0 = st.prefill_chunks, st.prefix_tokens_saved
+        r = Request(prompt=list(reqs[i].prompt), max_new_tokens=8)
+        eng.serve_wave([r])
+        runs.append({"chunks": st.prefill_chunks - c0,
+                     "prefix_tokens_saved": st.prefix_tokens_saved - s0,
+                     "stream": list(r.generated)})
+    full = -(-max(8, -(-len(reqs[i].prompt) // 8) * 8) // eng.prefill_chunk)
+    assert runs[1]["chunks"] < full and runs[1]["prefix_tokens_saved"] > 0, \
+        (runs, full)
+    assert runs[0]["stream"] == runs[1]["stream"] == streams[i][:8], runs
+    return {"prompt_len": len(reqs[i].prompt), "chunks_full": full,
+            "runs": [{k: v for k, v in x.items() if k != "stream"}
+                     for x in runs], "streams_equal": True}
+
+
+def phase_chunked_serve(dense_eng, dense, dense_streams):
+    """Chunked refill prefill (prefill_chunk 128: the serve's prompts of
+    64-512 tokens make 1-4 chunks) on the serve phase's configuration,
+    weights and 16 requests (glm4-9b at full width and depth): dense with
+    cohort commit, dense with eager commit, paged (page 16) at the dense
+    footprint of 512 pages, and paged at 256 pages (admission defers, so
+    the pipelines group other requests).  Asserts every request reaches
+    its budget, the four serves' streams equal, each stream equal to the
+    one-shot serve's or departing only at a near-tie (top-2 logit gap
+    within BF16_TOL of the top logit), no prefill op wider than 128, the
+    verify kernel's T = 128 launches equal to the chunk ops' (layers x
+    target continuations, plus the draft's extends), every kernel of the
+    path launched, and no page leaked.  Then one pipeline's staging rows
+    against the one-shot prefill's (``_staging_vs_one_shot``), and on the
+    512-page engine a pipeline resumed from shared prefix pages
+    (``_prefix_resume``).  Each
+    serve prints tokens/s, superstep ms, host syncs per superstep, TTFT
+    p50, chunks, prefill gap tokens, peak memory and launches beside the
+    one-shot serve's.  Returns the dense cohort serve's launches."""
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    keys = ("tokens_per_s", "superstep_ms_median", "host_syncs_per_superstep",
+            "ttft_p50_s", "prefill_op_width_max", "prefill_gap_tokens",
+            "max_memory_allocated_GB")
+    one_shot_width = max(w for _, w, _ in dense["prefill_rows_width_ms"])
+    out, streams, staging = None, None, None
+    for name, kw in (("dense_cohort", {}), ("dense_eager", {"commit": "eager"}),
+                     ("paged", {"page_size": GLM["P"]}),
+                     ("paged_half", {"page_size": GLM["P"],
+                                     "num_pages": 256})):
+        conf = ServingConfig(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
+                             superstep_rounds=8,
+                             prefill_chunk=CHUNK["C"], **kw)
+        eng = ServingEngine(dense_eng.cfg, dense_eng.params, dense_eng.dcfg,
+                            dense_eng.dparams, config=conf,
+                            device=dense_eng.device,
+                            extractor=SignalExtractor(SignalStore()))
+        reqs = _serve_requests(eng.cfg.vocab_size)
+        summary, launches = _timed_serve(eng, reqs)
+        got = [list(r.generated) for r in reqs]
+        st = eng.stats
+        assert st.prefill_op_width.max <= CHUNK["C"], st.prefill_op_width.max
+        assert st.prefill_chunks > st.refills / 2, summary
+        t128 = launches["verify_attention_by_t"].get(CHUNK["C"], 0)
+        want128 = _chunk_expected_t128(eng.cfg.num_layers,
+                                       summary["chunk_ops"])
+        assert t128 == want128 > 0, (t128, want128)
+        for k in ("flash_attention", "verify_attention", "extract_pack",
+                  "linear_rows"):
+            assert launches[k] > 0, (name, launches)
+        if eng.paged:
+            assert launches["verify_attention_paged"] > 0, launches
+        flips = _flips(eng, reqs, got, dense_streams)
+        for f in flips:
+            assert f["top2_logit_gap"] <= BF16_TOL * abs(f["top_logit"]), \
+                f"chunked {name} departs from one-shot at no near-tie: {f}"
+        row = {"phase": "chunked_serve", "engine": name,
+               "prefill_chunk": CHUNK["C"], **summary,
+               "t128_launches": t128,
+               "streams_differing_from_one_shot": len(flips),
+               "flips": flips, "one_shot": {k: dense[k] for k in keys},
+               "one_shot_prefill_op_width_max": one_shot_width,
+               "nvidia_smi": smi()}
+        if name == "dense_cohort":
+            out, streams = launches, got
+            staging = _staging_vs_one_shot(eng)
+            row["staging_vs_one_shot"] = staging
+        else:
+            assert got == streams, f"chunked {name} streams != dense cohort"
+            row["streams_equal_dense_cohort"] = True
+        if eng.paged:
+            row["admission_deferrals"] = st.admission_deferrals
+            row["pages_peak"] = st.pages_peak
+            row["prefix_hits"] = st.prefix_hits
+            if name == "paged":
+                row["prefix_resume"] = _prefix_resume(eng, reqs, got)
+            eng.release_prefix_cache()
+            eng.allocator.assert_clean()
+            if name == "paged_half":
+                assert st.admission_deferrals > 0, "256 pages never deferred"
         emit(row)
         del eng
         torch.cuda.empty_cache()
@@ -2886,6 +3245,7 @@ def main():
     sampled = phase_sampled_serve(eng, dense, trees[GLM["TREE_W"]][2])
     for name in ("threefry2x32", "categorical_rows"):
         launches[name] = sampled[name]
+    chunked = phase_chunked_serve(eng, dense, dense_streams)
     model = (eng.cfg, eng.params, eng.dcfg, eng.dparams)
     del eng, trees
     import gc
@@ -2902,11 +3262,12 @@ def main():
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launch_phase_launches"] = launch.get(row["name"], 0)
+        row["chunked_serve_launches"] = chunked.get(row["name"], 0)
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "launch_phase_launches")}
+        "library_ms", "launch_phase_launches", "chunked_serve_launches")}
         for row in rows]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,7 +12,8 @@ page_size=P)``) whose ``k``/``v`` are ``(NP + 1, P, Hk, D)`` page pools
 read and written through its own ``tbl`` copy of the block table.
 ``draft_extend`` / ``draft_propose`` write their K/V rows into it in place
 (JAX donates the buffers) and return a new dict with the advanced
-lengths.  Refill seeding runs on a dense R-row staging cache, which
+lengths.  Refill seeding (one-shot, or chunk by chunk with
+``seed_chunk_pairs``) runs on a dense R-row staging cache, which
 ``scatter_draft_rows_paged`` then writes through the table.  Drafting is
 greedy or sampled with JAX's threefry keys (``kernels/sample``).
 ``draft_train_loss`` is the EAGLE-3 training loss,
@@ -289,6 +290,27 @@ def seed_prompt_pairs(dcfg: ModelConfig, dparams, embed_params, dcache,
         tokens[:, 1:],
         torch.full((b,), s - 1, dtype=torch.int32, device=captures.device),
         linear=linear_rows)
+    return dcache
+
+
+def seed_chunk_pairs(dcfg: ModelConfig, dparams, embed_params, dcache,
+                     captures, next_tokens, advance):
+    """One chunk of the draft 'prefill': ingest the pairs
+    (captures[:, j], next_tokens[:, j]) for j < advance.
+
+    A chunked refill splits ``seed_prompt_pairs`` over the prompt's
+    chunks: chunk k passes its own target captures and the
+    lookahead-shifted token columns (token i + 1 for capture i, sliced
+    on the host from the whole prompt).  ``advance`` is the chunk's
+    width for an interior chunk and one less for the last (pair S - 1
+    does not exist); trailing columns are scratch that the next extend
+    rewrites.  The caller sets ``dcache['pad']`` before the first chunk.
+    The products the cache rows depend on run through ``linear_rows``,
+    as ``seed_prompt_pairs``' do, so a chunk's draft rows do not depend
+    on how many rows share its pipeline."""
+    _, _, dcache = draft_extend(dcfg, dparams, embed_params, dcache,
+                                captures, next_tokens, advance,
+                                linear=linear_rows)
     return dcache
 
 

@@ -577,6 +577,38 @@ def init_superstep_state(carry: SpecCarry, first_token, key=None, *,
 scatter_rows = eagle.scatter_batch_rows
 
 
+def pad_target_cache(cache, max_len: Optional[int]):
+    """Zero-pad a staging target cache, made at a chunked refill's
+    padded prompt width, out to the live cache's ``max_len`` positions
+    (the layer leaves' axis 2: (repeats, R, width, Hk, D)).
+
+    The staging cache stays at prompt width while the pipeline runs, so
+    a continuation chunk attends over the key width the one-shot prefill
+    does; the pad to max_len comes at commit, where the one-shot path's
+    prefill pads, and zero padding is exact.  ``max_len=None`` (a paged
+    engine) passes the cache through unchanged: a paged commit writes
+    the staging rows through the block table
+    (``scatter_target_cache_paged``), so a pad would be a wasted copy.
+    A staging cache wider than ``max_len`` raises."""
+    if max_len is None:
+        return cache
+    out = {}
+    for k, v in cache.items():
+        if k in ("lengths", "pad"):
+            out[k] = v
+            continue
+        out[k] = {}
+        for pos, entry in v.items():
+            out[k][pos] = {}
+            for leaf, t in entry.items():
+                if t.shape[2] > max_len:
+                    raise ValueError(f"staging leaf {tuple(t.shape)} is "
+                                     f"wider than max_len {max_len}")
+                out[k][pos][leaf] = torch.nn.functional.pad(
+                    t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+    return out
+
+
 def scatter_target_cache(cache, new, mask, src):
     """Replace, in place, the masked lanes of a live target cache with
     lanes of a freshly prefilled cache (same max_len).  ``lengths``/``pad``

@@ -90,14 +90,14 @@ class TideConfig:
     reseed_window: int = 0            # >0: re-seed resident draft caches
     #                                   at a deploy (async mode only)
     gate_arrivals: bool = False       # respect trace arrival timestamps
-    prefill_chunk: int = 0            # unported (engine refuses > 0)
+    prefill_chunk: int = 0            # chunked refill prefill (0 = one-shot)
     # ---- paged KV cache (core/paging.py; 0 = dense per-lane caches)
     page_size: int = 0
     num_pages: int = 0                # pool size (0 = dense footprint)
     share_prefix: bool = True         # COW prompt-prefix sharing
     # ---- serving control plane (see serving/policy.py)
     admission: str = "fifo"           # fifo | priority | deadline | wedf
-    commit: str = "cohort"            # engine refuses another value
+    commit: str = "cohort"            # cohort | eager (chunk pipelines)
     admission_lookahead: int = 64     # reorder window (non-FIFO policies)
     preempt: str = "none"             # engine refuses another value
     shed: str = "none"                # engine refuses another value

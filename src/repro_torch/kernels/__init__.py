@@ -26,6 +26,13 @@ def count(fn, attr: str = "launches", n: int = 1):
         setattr(fn, attr, getattr(fn, attr) + n)
 
 
+def count_at(fn, attr: str, key):
+    """Add one to ``fn.<attr>[key]`` (a ``collections.Counter`` of a
+    wrapper's launches by shape) under the lock of ``count``."""
+    with _COUNT_LOCK:
+        getattr(fn, attr)[key] += 1
+
+
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU (plain path); False when
     every one lies on one CUDA device (kernel path).  Anything else is

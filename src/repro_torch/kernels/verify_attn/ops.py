@@ -5,9 +5,11 @@ a tree on a CUDA tensor launches the kernel.  On the card the dtype and
 head dim pick the kernel's loop (``verify_route``)."""
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from repro_torch.kernels import (HEAD_DIMS, check_pools, count,
+from repro_torch.kernels import (HEAD_DIMS, check_pools, count, count_at,
                                  dtype_code, lane_ints, on_cpu, require,
                                  stream_of)
 from repro_torch.kernels.verify_attn.ref import (
@@ -45,9 +47,11 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
     ``csrc/verify_attn.cu`` in either mode, on the loop
     ``verify_route`` names, or raise.
     ``verify_attention.launches`` counts the kernel launches,
-    ``verify_attention.tree_launches`` those in tree mode and
+    ``verify_attention.tree_launches`` those in tree mode,
     ``verify_attention.t1_launches`` those of one query row (plain
-    decode, draft propose)."""
+    decode, draft propose) and ``verify_attention.launches_at_t`` (a
+    ``Counter``) the launches by query rows T (a chunked refill's
+    continuation runs at T = C)."""
     width, gamma = _tree(tree, q.shape[1])
     if on_cpu(q, k_cache, v_cache, lengths):
         if width:
@@ -86,12 +90,14 @@ def verify_attention(q, k_cache, v_cache, lengths, pad=None, *,
     count(verify_attention)
     count(verify_attention, "tree_launches", int(width > 0))
     count(verify_attention, "t1_launches", int(t == 1))
+    count_at(verify_attention, "launches_at_t", t)
     return out
 
 
 verify_attention.launches = 0
 verify_attention.tree_launches = 0
 verify_attention.t1_launches = 0
+verify_attention.launches_at_t = Counter()
 
 
 def verify_attention_paged(q, k_pool, v_pool, tbl, lengths, pad=None, *,

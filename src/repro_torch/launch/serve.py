@@ -15,9 +15,10 @@ JAX feeds the Eq. 5 gate an analytic TPU roofline, the port measures
 T(n) and D0 on the serving device (``measure_profile``).  Refused, each
 naming its ROADMAP queue 1 item: ``--dryrun`` (9), ``--fleet-replicas``
 and ``--trainer-endpoint`` (7), and through the engine's ``_unported``
-``--prefill-chunk`` and ``--commit eager`` (5), ``--preempt`` and
-``--shed`` (6).  ``--sample`` serves per-request-keyed sampled decoding
-from the engine base seed ``--seed``, JAX's threefry streams.
+``--preempt`` and ``--shed`` (6).  ``--sample`` serves per-request-keyed
+sampled decoding from the engine base seed ``--seed``, JAX's threefry
+streams; ``--prefill-chunk C`` serves chunked refill prefill, its
+pipelines committing under ``--commit`` (cohort or eager).
 
 ``main(argv, device="cpu")`` runs on the CPU; the pieces it calls
 (``serve_corpus``, ``measure_profile``, ``tide_config``, ``serve``,
@@ -79,8 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--idle-wait-s", type=float, default=0.005,
                     help="max host sleep per gated-arrival idle tick")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="chunked refill prefill width (not ported: "
-                         "item 5; 0 = one-shot)")
+                    help="chunked refill prefill width (multiple of 8; "
+                         "0 = one-shot): bounds the stall a long prompt "
+                         "injects into resident decode lanes to one "
+                         "chunk per superstep gap")
     ap.add_argument("--page-size", type=int, default=0,
                     help=">0: paged KV cache — target/draft caches "
                          "become block-table page pools with admission-"
@@ -115,8 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arrived-queue depth bound for --shed queue")
     ap.add_argument("--commit", choices=["cohort", "eager"],
                     default="cohort",
-                    help="chunk-pipeline commit policy (eager: not "
-                         "ported, item 5)")
+                    help="chunk-pipeline commit policy: cohort (an "
+                         "admission batch's pipelines land together, "
+                         "densest decode rounds) or eager (each pipeline "
+                         "lands as soon as its prefill completes)")
     ap.add_argument("--admission-lookahead", type=int, default=64,
                     help="queue reorder window for non-FIFO admission")
     ap.add_argument("--spec-park", type=int, default=0,

@@ -128,17 +128,18 @@ def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad, pools=None,
 
 
 def apply_layer_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths,
-                       pad, page_tbl=None, tree=None):
+                       pad, page_tbl=None, tree=None, linear=torch.matmul):
     """Writes this layer's new K/V into k_cache/v_cache (or, with
     ``page_tbl``, its page pools) in place.  ``tree=(W, γ)``: the rows
-    are a flattened draft tree, scored under the tree-causal mask."""
+    are a flattened draft tree, scored under the tree-causal mask.
+    ``linear``: the matrix product of the projections and the FFN."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, _ = attn.self_attention_decode(cfg, p["mix"], h, k_cache, v_cache,
                                         lengths, pad, page_tbl=page_tbl,
-                                        tree=tree)
+                                        tree=tree, linear=linear)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + ffn(p["ffn"], h2)
+    return x + ffn(p["ffn"], h2, linear=linear)
 
 
 def apply_layer_train(cfg: ModelConfig, p, x):
@@ -200,14 +201,14 @@ def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
 
 def run_group_decode(cfg, group_params, pattern, repeats, x, cache_group,
                      lengths, pad, base_idx: int, cap_targets, caps,
-                     page_tbl=None, tree=None):
+                     page_tbl=None, tree=None, linear=torch.matmul):
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
     for i in range(repeats):
         for pi in range(len(pattern)):
             entry = cache_group[f"pos{pi}"]
             x = apply_layer_decode(cfg, per_pos[pi][i], x, entry["k"][i],
                                    entry["v"][i], lengths, pad, page_tbl,
-                                   tree)
+                                   tree, linear)
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, caps
@@ -277,13 +278,21 @@ def prefill(cfg: ModelConfig, params, tokens, *,
             "captures": _caps_to_features(caps)}
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, *, tree=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, *, tree=None,
+                linear=torch.matmul, last_only: bool = False):
     """Verify/decode block: tokens (B, T) at cache positions
     lengths + [0..T).  Writes the block's K/V into ``cache`` in place
     (through ``page_tbl`` when the cache is paged) and returns
     dict(logits (B,T,V) fp32, cache (same tensors, lengths not advanced),
     captures (B,T,3D)).  With ``tree=(W, γ)`` the block is a flattened
-    draft tree (T = W·γ + 1) scored in one tree-masked pass."""
+    draft tree (T = W·γ + 1) scored in one tree-masked pass.
+
+    ``linear`` computes every matrix product, the LM head's included
+    (a chunked refill's continuation passes ``linear_rows``, as the
+    prefill does).  ``last_only``: the LM head runs on the last position
+    alone and ``logits`` is (B, V), the row the prefill returns (through
+    ``linear_rows`` a row's value does not depend on the rows beside
+    it)."""
     lengths, pad = cache["lengths"], cache["pad"]
     page_tbl = cache.get("page_tbl")
     x = embed(params["embed"], tokens, cfg.act_dtype)
@@ -291,12 +300,13 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *, tree=None):
     def runner(name, pattern, repeats, x, base, caps):
         return run_group_decode(cfg, params[name], pattern, repeats, x,
                                 cache[name], lengths, pad, base,
-                                cfg.captures, caps, page_tbl, tree)
+                                cfg.captures, caps, page_tbl, tree, linear)
 
     x, caps = _run_groups(cfg, params, x, runner)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = lm_head(params.get("head"), params["embed"], x,
-                     cfg.tie_embeddings)
+    logits = lm_head(params.get("head"), params["embed"],
+                     x[:, -1] if last_only else x, cfg.tie_embeddings,
+                     linear=linear)
     return {"logits": logits.float(), "cache": cache,
             "captures": _caps_to_features(caps)}
 

@@ -242,8 +242,9 @@ def placed_rows(kind, lane, p, extra, seed):
     """Lane 1's rows of one kernel call with the lane's prompt at pad
     ``p`` and the batch ``extra`` positions wider than pad + prompt.
     ``lane``: ``lane_inputs(L, ...)``.  Prefill kinds: the prompt's L
-    rows.  Decode kinds (verify T = 4 or 1, tree W 4 gamma 3 with
-    T = 13): the cache holds the L keys at [p, p + L), the last T of them
+    rows.  Decode kinds (verify T = 4 or 1, "verify128" a chunked
+    refill's continuation, tree W 4 gamma 3 with T = 13; L >= T): the
+    cache holds the L keys at [p, p + L), the last T of them
     the block's, and the lane's rows are the T query rows.  The other
     lanes' contents, pads and lengths change with ``seed``."""
     q, k, v = lane
@@ -260,7 +261,7 @@ def placed_rows(kind, lane, p, extra, seed):
                               torch.cat([vb, vb[:, :s_pg - s]], 1), seed)
         return flash_attention_paged(qb, kp, vp, tbl, pad)[1, p:p + length]
     tree = (4, 3) if kind.startswith("tree") else None
-    t = 13 if tree else int(kind[-1])
+    t = 13 if tree else int("".join(c for c in kind if c.isdigit()))
     smax = -(-(p + length + extra) // SHIFT_PAGE) * SHIFT_PAGE
     kb, vb = _placed(k, p, smax, seed + 1), _placed(v, p, smax, seed + 2)
     qb = _placed(q[:t], 0, t, seed)

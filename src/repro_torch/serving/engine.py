@@ -37,10 +37,10 @@ Differences from the JAX engine:
     (``verify_attention_paged``) without building a dense view.  Table
     snapshots and refill page rows reach the device by asynchronous
     copies from pinned memory, so paging adds no host sync.  Committed
-    prompt prefixes are shared copy-on-write at commit, on the one-shot
-    path.  The pools live as long as the engine, so a prefix published
-    in one ``serve_stream`` stays valid in the next (the JAX engine makes
-    new pools per stream but keeps its registry).
+    prompt prefixes are shared copy-on-write at commit.  The pools live
+    as long as the engine, so a prefix published in one ``serve_stream``
+    stays valid in the next (the JAX engine makes new pools per stream
+    but keeps its registry).
   * Tree speculation (``SpeculationPolicy(tree_width=W)``, which
     ``ServingConfig(tree_width=W)`` sets in the default policy): each
     speculative round drafts W branches of depth gamma and verifies them
@@ -71,9 +71,31 @@ Differences from the JAX engine:
     (``kernels/sample``), so a sampled stream is per-request and
     scheduling-invariant (stream, wave, stepwise, superstep, dense,
     paged), and equal to JAX's token for token away from near-ties.
-  * Only these slices are ported.  Chunked refill prefill (and with it
-    the paged prefix resume and the eager commit), preemption and load
-    shedding raise ``NotImplementedError`` naming their ROADMAP item, and
+  * Chunked refill prefill (``ServingConfig(prefill_chunk=C)``, C a
+    multiple of 8): each refill group (``Scheduler.refill_groups``, per
+    padded-width bucket) becomes a chunk pipeline that prefills its
+    prompts into dense staging caches, a ragged first chunk (the prefill
+    kernel) then chunks of exactly C (a decode step at T = C: the verify
+    kernel), one chunk a gap between supersteps, so no prefill op is
+    wider than C.  Every product of a chunk, the draft seed's
+    (``eagle.seed_chunk_pairs``) included, runs through ``linear_rows``,
+    and a continuation's LM head runs on its last position only.  The
+    last chunk is fused with its commit (first tokens, the staging rows
+    into the live lanes, in place or through the block tables, and the
+    lanes' state reset), and the first tokens ride the next telemetry
+    pull.  Under ``commit="cohort"`` (``CohortCommit``) the pipelines of
+    one admission batch commit together; ``"eager"`` (``EagerCommit``)
+    commits each as it finishes.  With no lane decoding (the stream's
+    start, empty supersteps) chunks run back to back.  A lane
+    mid-prefill is inert for decode and keeps its rows out of the live
+    caches until its commit; ``prefill_lane_rounds`` counts it apart
+    from occupancy, and TTFT runs from admission.  A paged pipeline
+    whose rows all hit the prefix registry gathers the covered chunks'
+    rows from the shared pages (``_chunk_resume``) instead of
+    prefilling them.  In the stepwise loop each pipeline commits as it
+    finishes, as in JAX.
+  * Only these slices are ported.  Preemption and load shedding raise
+    ``NotImplementedError`` naming their ROADMAP item (6, overload), and
     so does any other value of a knob that only they read
     (``shed_queue_depth``).
 """
@@ -92,6 +114,7 @@ from repro_torch.core import eagle, paging, prng, speculative as spec
 from repro_torch.core.adaptive import AdaptiveDrafter
 from repro_torch.core.controller import Decision, TrainingController
 from repro_torch.core.signals import SignalExtractor
+from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.kernels.sample import ops as sample
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -110,7 +133,8 @@ INERT_SID = 0x7FFFFFFF
 _STATS_COUNTERS = (
     "tokens_out", "steps", "spec_steps", "dispatches", "refills",
     "idle_supersteps", "deploys", "reseeds", "completed", "accept_len_n",
-    "lane_rounds", "busy_lane_rounds", "prefill_row_tokens",
+    "lane_rounds", "busy_lane_rounds", "prefill_chunks",
+    "prefill_lane_rounds", "prefill_row_tokens",
     "pages_peak", "prefix_hits", "prefix_tokens_saved",
     "admission_deferrals",
 )
@@ -149,7 +173,14 @@ class _CounterView:
 class ServingStats:
     """Engine counters, backed by the ``serving.*`` namespace of a
     ``MetricsRegistry``.  ``tokens_out`` counts exactly the tokens that
-    survive in ``Request.generated`` (the first token included)."""
+    survive in ``Request.generated`` (the first token included).
+
+    Chunked refill prefill: ``prefill_chunks`` counts chunk dispatches,
+    ``prefill_lane_rounds`` the lane-rounds spent mid-prefill (inert for
+    decode, left out of the occupancy denominator), and the
+    ``prefill_gap_tokens`` histogram the prefill row-tokens of each
+    inter-superstep gap (one-shot refills and the prologue too);
+    ``prefill_op_width`` holds each prefill op's width."""
 
     def __init__(self, retain: int = 4096, registry=None):
         self.registry = registry if registry is not None \
@@ -169,6 +200,8 @@ class ServingStats:
         self.timeline = Ring(retain)
         self.prefill_op_width = self.registry.histogram(
             "serving.prefill_op_width", (0.5,), reset=True)
+        self.prefill_gap_tokens = self.registry.histogram(
+            "serving.prefill_gap_tokens", (0.5,), reset=True)
         self._ttft_hist = self.registry.histogram(
             "serving.ttft_s", (0.5,), reset=True)
         self._lat_hist = self.registry.histogram(
@@ -201,7 +234,11 @@ class ServingStats:
 
     @property
     def occupancy(self) -> float:
-        return self.busy_lane_rounds / max(self.lane_rounds, 1)
+        """Fraction of decode-eligible lane-rounds that committed tokens;
+        lanes still chunk-prefilling their prompt are busy with
+        admission work, not idle, and are left out."""
+        return self.busy_lane_rounds / max(
+            self.lane_rounds - self.prefill_lane_rounds, 1)
 
     def _pct(self, xs, sketch: P2Quantile, q: float) -> float:
         if sketch.n_obs > len(xs):
@@ -232,10 +269,6 @@ def _unported(config: ServingConfig):
     """Raise for every configuration outside the ported slices, naming
     its ROADMAP queue 1 item."""
     checks = (
-        (config.prefill_chunk > 0, "prefill_chunk>0", 5,
-         "chunked refill prefill"),
-        (config.commit != "cohort", f"commit={config.commit!r}", 5,
-         "chunked refill prefill"),
         (config.preempt != "none", f"preempt={config.preempt!r}", 6,
          "overload"),
         (config.shed != "none", f"shed={config.shed!r}", 6, "overload"),
@@ -247,6 +280,57 @@ def _unported(config: ServingConfig):
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP queue 1 item {n}: "
                 f"{item})")
+
+
+class _ChunkPipeline:
+    """Host bookkeeping of one in-flight chunked refill group.
+
+    Holds the (slot, request) assignments, the padded prompt and lane-map
+    tensors (as ``_refill_arrays`` builds them for a one-shot refill) and
+    the staging target and draft caches the chunk ops extend.  The
+    prompt is prefilled left to right: the first chunk is ragged
+    (``width - (n_chunks - 1) * chunk``, a multiple of 8 in [8, chunk],
+    so the last chunk ends exactly at ``width``), every later one is
+    ``chunk`` wide."""
+
+    def __init__(self, admitted, args, chunk: int, cohort: int = 0,
+                 order: int = 0):
+        (self.toks, self.pad, self.mask, self.src, self.budgets,
+         self.sids) = args
+        self.admitted = admitted
+        self.rows = int(self.toks.shape[0])
+        self.width = int(self.toks.shape[1])
+        n_chunks = -(-self.width // chunk)
+        self.first_width = self.width - (n_chunks - 1) * chunk
+        self.chunk = chunk
+        self.pos = 0            # prompt prefix already prefilled
+        # the pipelines of one admission batch form a cohort: their
+        # chunks run independently, but under CohortCommit they commit
+        # together when the slowest finishes, so the lanes of one
+        # admission activate in one gap, as a one-shot refill's do
+        self.cohort = cohort
+        self.order = order
+        self.ready = False      # fully prefilled, waiting on its cohort
+        self.cache = None       # staging target cache (rows x width)
+        self.dcache = None      # staging draft cache (rows x max_len)
+        self.logits = None      # last-position logits after the last chunk
+        self.caps_last = None   # last capture column after the last chunk
+        # paged prefix sharing (filled at spawn)
+        self.resume_q = 0       # > 0: positions [0, q) come from the
+        #                         shared pages in resume_rows
+        self.resume_rows = None  # (rows, ceil(q / P)) shared page ids
+        self.pub_entries = []   # (slot, provenance key, n_pages) to
+        #                         publish at commit
+        self.deploy_seq = 0     # draft version at spawn (a deploy
+        #                         mid-pipeline makes its pages unshareable)
+
+    @property
+    def next_width(self) -> int:
+        return self.first_width if self.pos == 0 else self.chunk
+
+    @property
+    def done(self) -> bool:
+        return self.pos >= self.width
 
 
 class ServingEngine:
@@ -281,6 +365,9 @@ class ServingEngine:
                     f"{clash}; set them on the ServingConfig instead")
             config = dataclasses.replace(config)
         _unported(config)
+        if config.prefill_chunk < 0 or config.prefill_chunk % 8:
+            raise ValueError(f"prefill_chunk {config.prefill_chunk} must "
+                             "be a multiple of 8 (refill shape bucket)")
         self.device = resolve_device(device)
         pdev = params["embed"]["tok"].device
         if pdev.type != self.device.type or (
@@ -327,6 +414,12 @@ class ServingEngine:
         self.gate_arrivals = config.gate_arrivals
         self.completion_sink = config.completion_sink
         self.idle_wait_s = config.idle_wait_s
+        # > 0: chunked refill prefill; every refill (and the stream's
+        # first batch) is prefilled in chunks that interleave with the
+        # resident lanes' supersteps
+        self.prefill_chunk = config.prefill_chunk
+        self._pipelines: List[_ChunkPipeline] = []
+        self._cohort_next = 0
         self._sleep = time.sleep
         self._clock = time.perf_counter
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -451,6 +544,123 @@ class ServingEngine:
         return sample.categorical_rows(
             self._lane_keys(sids, torch.zeros_like(sids)), logits)
 
+    # ------------------------------------------ chunked refill ops
+    # A chunked refill prefills its prompt chunk by chunk into a
+    # *staging* cache pair that touches the live state only at commit,
+    # so the resident lanes never wait for more than one chunk of
+    # prefill per gap between supersteps.  The first chunk is a prefill
+    # (the prefill kernel), a continuation is a decode step at T = C
+    # (the verify kernel), and every product of both runs through
+    # ``linear_rows``, the draft seed's included: a prompt's rows do not
+    # depend on its pipeline's other rows.  On a paged engine the
+    # staging caches stay dense, as in JAX, and the commit writes them
+    # through the lanes' block tables; a lane mid-prefill is inert.
+    def _chunk_start_core(self, toks_c, nxt, pad, adv, width: int):
+        """First (ragged) chunk: fresh staging caches.  ``nxt`` holds the
+        lookahead-shifted tokens of the draft pairs, ``adv`` (R,) the
+        valid pair count.  The staging target cache is ``width`` (the
+        pipeline's prompt width) long, so a continuation attends over the
+        key width the one-shot prefill does (``spec.pad_target_cache``
+        pads it at commit).  Returns (cache_s, dcache_s, logits (R, V),
+        last capture (R, 3D))."""
+        pre = T.prefill(self.cfg, self.params, toks_c, max_len=width,
+                        pad=pad)
+        dcache_s = eagle.init_draft_cache(self.dcfg, toks_c.shape[0],
+                                          self.max_len, device=self.device)
+        dcache_s["pad"] = pad.to(torch.int32, copy=True)
+        dcache_s = eagle.seed_chunk_pairs(self.dcfg, self.dparams,
+                                          self.params["embed"], dcache_s,
+                                          pre["captures"], nxt, adv)
+        return (pre["cache"], dcache_s, pre["logits"],
+                pre["captures"][:, -1])
+
+    def _chunk_cont_core(self, cache_s, dcache_s, toks_c, nxt, adv):
+        """Continuation chunk: extend the staging caches, in place,
+        through the decode path at positions [pos, pos + C), the LM head
+        on the last position only."""
+        r, w = toks_c.shape
+        out = T.decode_step(self.cfg, self.params, cache_s, toks_c,
+                            linear=linear_rows, last_only=True)
+        cache_s = T.commit_cache(self.cfg, out["cache"], torch.full(
+            (r,), w, dtype=torch.int32, device=self.device))
+        dcache_s = eagle.seed_chunk_pairs(self.dcfg, self.dparams,
+                                          self.params["embed"], dcache_s,
+                                          out["captures"], nxt, adv)
+        return cache_s, dcache_s, out["logits"], out["captures"][:, -1]
+
+    def _chunk_scatter_core(self, pl: "_ChunkPipeline", cache, dcache):
+        """The commit both loops share (the chunked twin of
+        ``_refill_core``'s output side): pick the pipeline's first tokens
+        (``_pick``), pad its staging target cache to the live geometry
+        (dense), write both staging caches into the masked live lanes in
+        place (through the block tables on a paged engine) and build the
+        refill carry.  Returns (cache, dcache, carry_r, first)."""
+        first = self._pick(pl.logits, pl.sids)
+        cache_s = spec.pad_target_cache(
+            pl.cache, None if self.paged else self.max_len)
+        if self.paged:
+            spec.scatter_target_cache_paged(cache, cache_s, pl.mask, pl.src)
+            eagle.scatter_draft_rows_paged(dcache, pl.dcache, pl.mask,
+                                           pl.src)
+        else:
+            spec.scatter_target_cache(cache, cache_s, pl.mask, pl.src)
+            eagle.scatter_draft_rows(dcache, pl.dcache, pl.mask, pl.src)
+        carry_r = spec.init_carry_from_caps(pl.caps_last, first, self.gamma)
+        return cache, dcache, carry_r, first
+
+    def _chunk_commit(self, pl: "_ChunkPipeline", cache, dcache, state,
+                      max_new):
+        """Commit a fully prefilled pipeline into the live state and reset
+        its lanes' superstep state (the chunked twin of
+        ``_refill_superstep``).  Returns (cache, dcache, state, max_new,
+        first)."""
+        cache, dcache, carry_r, first = self._chunk_scatter_core(
+            pl, cache, dcache)
+        state = spec.refill_superstep_state(
+            state, carry_r, first, pl.budgets, pl.mask, pl.src,
+            eos_id=self.eos_id, sids=pl.sids)
+        max_new = torch.where(pl.mask, pl.budgets[pl.src.long()], max_new)
+        return cache, dcache, state, max_new, first
+
+    def _chunk_commit_step(self, pl: "_ChunkPipeline", cache, dcache,
+                           carry):
+        """A finished pipeline's commit in the per-step reference loop,
+        through the same ``_chunk_scatter_core``, so the loops cannot
+        drift.  Returns (cache, dcache, carry, first)."""
+        cache, dcache, carry_r, first = self._chunk_scatter_core(
+            pl, cache, dcache)
+        carry = spec.scatter_carry(carry, carry_r, pl.mask, pl.src)
+        return cache, dcache, carry, first
+
+    def _chunk_resume(self, width: int, q: int, cache, dcache, tbl_rows,
+                      pad):
+        """Staging caches whose positions [0, q) are gathered from shared
+        prefix pages (``tbl_rows`` (R, ceil(q / P)) page ids, a row per
+        staging row; ``paging.gather_rows_paged``): the paged engine's
+        replacement for the prefix's chunks.  Returns (cache_s,
+        dcache_s)."""
+        r = tbl_rows.shape[0]
+        cache_s = T.init_cache(self.cfg, r, width, device=self.device)
+        for g, v in cache_s.items():
+            if g in ("lengths", "pad"):
+                continue
+            for pos, entry in v.items():
+                for leaf, t in entry.items():
+                    pools = cache[g][pos][leaf]
+                    for i in range(t.shape[0]):
+                        t[i, :, :q] = paging.gather_rows_paged(
+                            pools[i], tbl_rows, q)
+        dcache_s = eagle.init_draft_cache(self.dcfg, r, self.max_len,
+                                          device=self.device)
+        for leaf in ("k", "v"):
+            dcache_s[leaf][:, :q] = paging.gather_rows_paged(
+                dcache[leaf], tbl_rows, q)
+        for c in (cache_s, dcache_s):
+            c["lengths"] = torch.full((r,), q, dtype=torch.int32,
+                                      device=self.device)
+            c["pad"] = pad.to(torch.int32, copy=True)
+        return cache_s, dcache_s
+
     # ------------------------------------------------------------- deploy
     def deploy_draft(self, dparams):
         """Hot-swap the draft (no target reload, TIDE's C2).  Under
@@ -494,12 +704,14 @@ class ServingEngine:
     def reset_adaptation(self, dparams):
         """Back to the post-construction adaptive state: draft params,
         acceptance EMA, deploy and sid counters, the page allocator,
-        stats and the speculation policy (JAX's, less the chunk
-        pipelines and the spill store, which the port does not have)."""
+        stats, the chunk pipelines and the speculation policy (JAX's,
+        less the spill store, which the port does not have)."""
         self.dparams = dparams
         self.accept_ema = 1.0
         self._deploy_seq = 0
         self._sid_next = 0
+        self._pipelines = []
+        self._cohort_next = 0
         if self.allocator is not None:
             self.allocator.reset()
         self.stats = ServingStats(registry=self.metrics)
@@ -605,6 +817,7 @@ class ServingEngine:
         toks_t, pad_t = self._t(toks, torch.int32), self._t(pad, torch.int32)
         sids_t = self._t(self._slot_sids(requests), torch.int32)
         self._note_prefill_op(b, plen)
+        self.stats.prefill_gap_tokens.add(b * plen)
         if self.paged:
             # a refill of every lane: reserve the live ones (inert slots
             # are not scheduler-owned and map nothing), write the batch
@@ -669,17 +882,25 @@ class ServingEngine:
         self._assign_sids(admitted)
         reqs0 = [r if r is not None else inert_request()
                  for r in sched.slots]
-        with self.tracer.span("prefill.prologue", rows=self.batch):
-            cache, dcache, carry, first = self._prologue(reqs0)
-        first_np = self._host(first)
-        for i, r in enumerate(reqs0):
-            self._commit_first(r, int(first_np[i]))
+        cold = bool(self.prefill_chunk)
+        if cold:
+            # chunked: no one-shot prologue; the first batch flows
+            # through the same chunk pipelines as every later refill
+            cache, dcache, carry, first = self._empty_state()
+            self._pipelines = []
+            self._spawn_pipelines(admitted)
+        else:
+            with self.tracer.span("prefill.prologue", rows=self.batch):
+                cache, dcache, carry, first = self._prologue(reqs0)
+            first_np = self._host(first)
+            for i, r in enumerate(reqs0):
+                self._commit_first(r, int(first_np[i]))
         if self.superstep_rounds > 0:
             self._stream_superstep(sched, reqs0, cache, dcache, carry,
-                                   first, t0, on_complete)
+                                   first, t0, on_complete, cold=cold)
         else:
             self._stream_stepwise(sched, cache, dcache, carry, t0,
-                                  on_complete)
+                                  on_complete, cold=cold)
         if self.extractor is not None:
             self.extractor.flush()
         self.stats.wall_s += self._clock() - t0
@@ -882,6 +1103,253 @@ class ServingEngine:
         if self.allocator is not None:
             self.allocator.release_prefix_cache()
 
+    def _try_adopt(self, pl: _ChunkPipeline,
+                   group: List[Tuple[int, Request]]):
+        """Prefix-registry probe at pipeline spawn: when every row's
+        provenance key hits, the pipeline skips the chunks the shared
+        pages cover (``_resume_pipeline`` seeds its staging from them:
+        no prefill row-tokens) and resumes at the next chunk boundary.
+        The lane keeps its own reservation; page dedup happens at commit
+        (``_publish_pipeline``), so decode's writes to a lane mid-prefill
+        never land in shared pages."""
+        pl.deploy_seq = self._deploy_seq
+        pl.pub_entries = self._prefix_entries(group, pl.rows, pl.width)
+        if not pl.pub_entries:
+            return
+        m = (pl.width - 1) // self.page_size
+        hits = []
+        for _, key, _ in pl.pub_entries:
+            hit = self.allocator.lookup(key)
+            if hit is None:
+                return
+            hits.append(hit[:m])
+        # the last chunk boundary the shared pages cover, strictly inside
+        # the prompt (one chunk always remains, to make the logits and
+        # the last capture)
+        q, b = 0, pl.first_width
+        while b < pl.width:
+            if b <= m * self.page_size:
+                q = b
+            b += pl.chunk
+        if q <= 0:
+            return
+        mq = -(-q // self.page_size)
+        rows = [h[:mq] for h in hits]
+        rows += [rows[0]] * (pl.rows - len(rows))   # pow2 padding rows
+        pl.resume_q = q
+        pl.resume_rows = np.asarray(rows, np.int32)
+        self.allocator.prefix_hits += len(group)
+        self.allocator.prefix_tokens_saved += len(group) * q
+        self._sync_paged_stats()
+
+    def _resume_pipeline(self, pl: _ChunkPipeline, cache, dcache):
+        """Seed a spawn-time registry hit's staging caches from the shared
+        pages, in the spawn's gap: every op that could rewrite those
+        pages is queued after it on the one stream."""
+        pl.cache, pl.dcache = self._chunk_resume(
+            pl.width, pl.resume_q, cache, dcache,
+            paging.to_device(pl.resume_rows, self.device), pl.pad)
+        pl.pos = pl.resume_q
+        pl.resume_q = 0
+
+    def _publish_pipeline(self, pl: _ChunkPipeline):
+        """Commit-time publish and dedup of one pipeline's prefixes,
+        skipped when a draft deploy landed mid-pipeline (its draft pages
+        then mix two drafts' rows and match no provenance key)."""
+        if self.allocator is None or self._deploy_seq != pl.deploy_seq:
+            return
+        self._publish_prefixes(pl.pub_entries)
+
+    # ------------------------------------------- chunked refill pipeline
+    def _make_pipeline(self, admitted, cohort: int = 0,
+                       order: int = 0) -> _ChunkPipeline:
+        return _ChunkPipeline(admitted, self._refill_arrays(admitted),
+                              self.prefill_chunk, cohort, order)
+
+    def _spawn_pipelines(self, admitted):
+        """One chunk pipeline per refill group of the admission batch
+        (``CommitPolicy.refill_groups``: per padded-width bucket by
+        default), all of one commit cohort."""
+        cohort = self._cohort_next
+        self._cohort_next += 1
+        for i, group in enumerate(self.policy.commit.refill_groups(
+                admitted, self.prefill_chunk)):
+            pl = self._make_pipeline(group, cohort, i)
+            if self.paged:
+                self._reserve_group(group, pl.width)
+                self._try_adopt(pl, group)
+            self._pipelines.append(pl)
+
+    def _chunk_args(self, pl: _ChunkPipeline):
+        """The pipeline's next chunk: (width, tokens, lookahead-shifted
+        draft-pair tokens, (R,) valid pair count)."""
+        w = pl.next_width
+        a, b = pl.pos, pl.pos + w
+        toks_c = pl.toks[:, a:b].contiguous()
+        # draft pairs are (capture i, token i + 1); pair width - 1 does
+        # not exist, so the last chunk ingests one fewer
+        adv = min(w, pl.width - 1 - a)
+        nxt = pl.toks[:, a + 1:b + 1]
+        if nxt.shape[1] < w:
+            nxt = torch.nn.functional.pad(nxt, (0, w - nxt.shape[1]))
+        return w, toks_c, nxt.contiguous(), torch.full(
+            (pl.rows,), adv, dtype=torch.int32, device=self.device)
+
+    def _advance_pipeline(self, pl: _ChunkPipeline,
+                          fused_commit: bool = False) -> int:
+        """Run the next chunk of one pipeline.  ``fused_commit``: the
+        pipeline's last chunk, whose commit runs right after it in the
+        same gap (JAX fuses the two into one op; the trace marks the
+        chunk as JAX does).  Returns its row-token cost."""
+        w, toks_c, nxt, adv = self._chunk_args(pl)
+        span = dict(rows=pl.rows, width=w)
+        if fused_commit:
+            span["fused_commit"] = True
+        with self.tracer.span("prefill.chunk", **span):
+            if pl.pos == 0:
+                pl.cache, pl.dcache, pl.logits, pl.caps_last = \
+                    self._chunk_start_core(toks_c, nxt, pl.pad, adv,
+                                           pl.width)
+            else:
+                pl.cache, pl.dcache, pl.logits, pl.caps_last = \
+                    self._chunk_cont_core(pl.cache, pl.dcache, toks_c,
+                                          nxt, adv)
+        pl.pos += w
+        self.stats.prefill_chunks += 1
+        self._note_prefill_op(pl.rows, w)
+        self._obs_chunk(pl, w)
+        return pl.rows * w
+
+    def _obs_chunk(self, pl: _ChunkPipeline, w: int):
+        """Flight-recorder note for one chunk (each member request
+        advanced ``w`` columns)."""
+        if self.recorder.enabled:
+            for _, req in pl.admitted:
+                self.recorder.note(req.rid, "prefill_chunk",
+                                   round_=self.stats.steps, pos=pl.pos,
+                                   width=w)
+
+    def _advance_pipelines_ss(self, cache, dcache, state, max_new, pending):
+        """Advance every pipeline by one chunk, with cohort commits.
+
+        Pass 1, chunks: each pipeline not yet staged runs its next
+        chunk.  A pipeline that commits alone (eager, or the only one of
+        its cohort left) commits right after its last chunk; one with
+        cohort siblings stages it and waits (``ready``).
+        Pass 2, cohorts: a cohort whose pipelines are all staged commits
+        them in admission order in this gap, so the lanes of one
+        admission activate together.
+
+        Committed first tokens ride the pending telemetry record; with
+        none in flight (the stream's start) they are read at once.
+        Returns (cache, dcache, state, max_new, row-token cost, commits)."""
+        gap_tokens = 0
+        commits = 0
+        committed = []
+        cache, dcache = self._ship_tables(cache, dcache)
+
+        def emit_first(fdev, pl):
+            if pending is not None:
+                pending["refills"].append((fdev, pl.admitted))
+            else:
+                first_np = self._host(fdev)
+                for row, (_, req) in enumerate(pl.admitted):
+                    self._commit_first(req, int(first_np[row]))
+
+        for pl in self._pipelines:
+            if pl.ready:
+                continue
+            if pl.resume_q and pl.pos == 0:
+                self._resume_pipeline(pl, cache, dcache)
+            if pl.pos + pl.next_width < pl.width:      # interior chunk
+                gap_tokens += self._advance_pipeline(pl)
+                continue
+            solo = (not self.policy.commit.cohort
+                    or not any(q.cohort == pl.cohort and q is not pl
+                               for q in self._pipelines))
+            if not solo:
+                # last chunk, siblings still prefilling: stage and wait
+                gap_tokens += self._advance_pipeline(pl)
+                pl.ready = True
+                continue
+            gap_tokens += self._advance_pipeline(pl, fused_commit=True)
+            cache, dcache, state, max_new, fdev = self._chunk_commit(
+                pl, cache, dcache, state, max_new)
+            self.stats.refills += len(pl.admitted)
+            commits += 1
+            committed.append(pl)
+            emit_first(fdev, pl)
+            self._publish_pipeline(pl)
+
+        cohorts = {}
+        for pl in self._pipelines:
+            if pl not in committed:
+                cohorts.setdefault(pl.cohort, []).append(pl)
+        for members in cohorts.values():
+            if not all(q.ready for q in members):
+                continue
+            for q in sorted(members, key=lambda q: q.order):
+                with self.tracer.span("prefill.commit", rows=q.rows):
+                    cache, dcache, state, max_new, fdev = \
+                        self._chunk_commit(q, cache, dcache, state, max_new)
+                self.stats.refills += len(q.admitted)
+                commits += 1
+                committed.append(q)
+                emit_first(fdev, q)
+                self._publish_pipeline(q)
+        self._pipelines = [pl for pl in self._pipelines
+                           if pl not in committed]
+        return cache, dcache, state, max_new, gap_tokens, commits
+
+    def _advance_pipelines_step(self, cache, dcache, carry, active, sids,
+                                steps):
+        """The per-step reference loop's advance: one chunk a pipeline;
+        a finished pipeline commits into the live carry at once and
+        updates the host lane masks in place."""
+        gap_tokens = 0
+        live = []
+        cache, dcache = self._ship_tables(cache, dcache)
+        for pl in self._pipelines:
+            if pl.resume_q and pl.pos == 0:
+                self._resume_pipeline(pl, cache, dcache)
+            gap_tokens += self._advance_pipeline(pl)
+            if not pl.done:
+                live.append(pl)
+                continue
+            cache, dcache, carry, fdev = self._chunk_commit_step(
+                pl, cache, dcache, carry)
+            self.stats.refills += len(pl.admitted)
+            self._publish_pipeline(pl)
+            first_np = self._host(fdev)
+            for row, (slot, req) in enumerate(pl.admitted):
+                self._commit_first(req, int(first_np[row]))
+                active[slot] = req.finish_t is None
+                sids[slot] = req.sid
+                steps[slot] = 1
+        self._pipelines = live
+        return cache, dcache, carry, gap_tokens
+
+    def _empty_state(self):
+        """All-inert serving state for a chunked stream's start: zero
+        caches (the engine's pools on a paged engine) and a unit carry.
+        Every lane stays inactive until its pipeline's commit."""
+        b = self.batch
+        if self.paged:
+            cache, dcache = self._paged_caches()
+        else:
+            cache = T.init_cache(self.cfg, b, self.max_len,
+                                 device=self.device)
+            dcache = eagle.init_draft_cache(self.dcfg, b, self.max_len,
+                                            device=self.device)
+        carry = spec.SpecCarry(
+            feats=torch.zeros((b, self.gamma + 1, 3 * self.cfg.d_model),
+                              dtype=self.cfg.act_dtype, device=self.device),
+            tokens=torch.zeros((b, self.gamma + 1), dtype=torch.int32,
+                               device=self.device),
+            advance=torch.ones((b,), dtype=torch.int32, device=self.device))
+        first = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        return cache, dcache, carry, first
+
     # ----------------------------------------------- superstep hot path
     def _materialize(self, rounds):
         """Pull telemetry to the host; the packed signal buffers stay on
@@ -907,15 +1375,35 @@ class ServingEngine:
         return out
 
     def _stream_superstep(self, sched, reqs0, cache, dcache, carry, first,
-                          t0, on_complete):
-        max_new = self._t([r.max_new_tokens for r in reqs0], torch.int32)
-        active0 = self._t([r.finish_t is None for r in reqs0], torch.bool)
+                          t0, on_complete, cold=False):
+        if cold:
+            # chunked start: every lane is inert until its commit
+            max_new = torch.zeros((self.batch,), dtype=torch.int32,
+                                  device=self.device)
+            active0 = torch.zeros((self.batch,), dtype=torch.bool,
+                                  device=self.device)
+        else:
+            max_new = self._t([r.max_new_tokens for r in reqs0],
+                              torch.int32)
+            active0 = self._t([r.finish_t is None for r in reqs0],
+                              torch.bool)
         state = spec.init_superstep_state(
             carry, first, self._base_key, accept_ema=self.accept_ema,
             eos_id=self.eos_id,
             active0=active0, sids=self._t(self._slot_sids(reqs0),
                                           torch.int32),
             capture_window=self.reseed_window)
+        if cold and self._pipelines:
+            # the first pipelines take the prologue's place; no lane
+            # decodes yet, so chunks run back to back to the first commit
+            gap, commits = 0, 0
+            while self._pipelines and commits == 0:
+                cache, dcache, state, max_new, g, commits = \
+                    self._advance_pipelines_ss(cache, dcache, state,
+                                               max_new, None)
+                gap += g
+            if gap:
+                self.stats.prefill_gap_tokens.add(gap)
         # one-superstep double buffer, as in the reference: superstep t+1
         # is dispatched before t's telemetry is unpacked; refills
         # scheduled from t's unpack enter behind t+1
@@ -944,6 +1432,9 @@ class ServingEngine:
                                         out["state"])
                 prev, pending = pending, {"rounds": out["rounds"],
                                           "slots": list(sched.slots),
+                                          "n_prefill": sum(
+                                              len(p.admitted)
+                                              for p in self._pipelines),
                                           "refills": []}
                 dispatched = True
             else:
@@ -958,10 +1449,16 @@ class ServingEngine:
             with self.tracer.span("superstep.unpack"):
                 progressed = self._drain(prev, t0)
             admitted = self._retire_and_admit(sched, on_complete)
-            if admitted:
+            gap_tokens = 0
+            if admitted and self.prefill_chunk:
+                # chunked: new pipelines, whose first chunks run in the
+                # advance below, in the refill op's place
+                self._spawn_pipelines(admitted)
+            elif admitted:
                 args = self._refill_arrays(admitted)
                 rows, width = args[0].shape
                 self._note_prefill_op(rows, width)
+                gap_tokens += int(rows) * int(width)
                 cache, dcache, tbl_rows = self._map_refill(
                     cache, dcache, admitted, rows, width)
                 with self.tracer.span("refill", rows=int(rows),
@@ -980,7 +1477,23 @@ class ServingEngine:
                     first_np = self._host(fdev)
                     for row, (_, req) in enumerate(admitted):
                         self._commit_first(req, int(first_np[row]))
-            stall = 0 if (progressed or admitted) else stall + 1
+            if self._pipelines:
+                cache, dcache, state, max_new, gap, commits = \
+                    self._advance_pipelines_ss(cache, dcache, state,
+                                               max_new, pending)
+                gap_tokens += gap
+                # the drained superstep was empty (no lane decoding):
+                # nothing to interleave with, so run the pipelines to the
+                # next commit instead of one chunk per empty dispatch
+                while self._pipelines and not progressed and commits == 0:
+                    cache, dcache, state, max_new, gap, commits = \
+                        self._advance_pipelines_ss(cache, dcache, state,
+                                                   max_new, pending)
+                    gap_tokens += gap
+            if gap_tokens:
+                self.stats.prefill_gap_tokens.add(gap_tokens)
+            stall = 0 if (progressed or admitted or gap_tokens) \
+                else stall + 1
             if stall > 4:
                 raise RuntimeError(
                     "serve_stream made no progress over 5 supersteps "
@@ -992,17 +1505,20 @@ class ServingEngine:
         valid."""
         ys = self._materialize(rec["rounds"])
         rids = [r.rid if r is not None else -1 for r in rec["slots"]]
-        progressed = self._unpack_superstep(ys, rec["slots"], rids, t0)
+        progressed = self._unpack_superstep(ys, rec["slots"], rids, t0,
+                                            rec.get("n_prefill", 0))
         for fdev, admitted in rec["refills"]:
             first_np = self._host(fdev)
             for row, (_, req) in enumerate(admitted):
                 self._commit_first(req, int(first_np[row]))
         return progressed
 
-    def _unpack_superstep(self, ys, requests, rids, t0) -> bool:
+    def _unpack_superstep(self, ys, requests, rids, t0,
+                          n_prefill: int = 0) -> bool:
         """Replay one superstep's host-side bookkeeping from its
         telemetry: token commit, stats/timeline, the Algorithm 1
-        controller and packed-signal ingestion."""
+        controller and packed-signal ingestion.  ``n_prefill``: the lanes
+        mid-chunk-prefill at dispatch (inert, counted apart)."""
         valid = ys["valid"]
         sig_np = None
         any_valid = False
@@ -1038,6 +1554,7 @@ class ServingEngine:
             self.stats.accept_len_n += 1
             self.stats.lane_rounds += len(requests)
             self.stats.busy_lane_rounds += busy
+            self.stats.prefill_lane_rounds += n_prefill
             self.accept_ema = float(ys["ema"][r])
             if self.drafter is not None:
                 self.drafter.enabled = use_spec
@@ -1070,21 +1587,31 @@ class ServingEngine:
 
     # ------------------------------------------ per-step reference loop
     def _stream_stepwise(self, sched, cache, dcache, carry, t0,
-                         on_complete):
+                         on_complete, cold=False):
         b = self.batch
         slots = list(sched.slots)
-        active = np.array([r is not None and r.finish_t is None
-                           for r in slots], bool)
+        active = (np.zeros((b,), bool) if cold else
+                  np.array([r is not None and r.finish_t is None
+                            for r in slots], bool))
         # host twin of the superstep's (sid, step_idx) state
         sids = self._slot_sids(slots)
         steps = np.ones((b,), np.int32)
+        if cold and self._pipelines:
+            cache, dcache, carry, gap = self._advance_pipelines_step(
+                cache, dcache, carry, active, sids, steps)
+            if gap:
+                self.stats.prefill_gap_tokens.add(gap)
         while True:
             self._poll_deploy()
             admitted = self._retire_and_admit(sched, on_complete)
-            if admitted:
+            if admitted and self.prefill_chunk:
+                self._spawn_pipelines(admitted)
+                slots = list(sched.slots)
+            elif admitted:
                 toks, pad, mask, src, _, rsids = self._refill_arrays(admitted)
                 rows, width = toks.shape
                 self._note_prefill_op(rows, width)
+                self.stats.prefill_gap_tokens.add(int(rows) * int(width))
                 cache, dcache, tbl_rows = self._map_refill(
                     cache, dcache, admitted, rows, width)
                 with self.tracer.span("refill", rows=int(rows),
@@ -1102,6 +1629,12 @@ class ServingEngine:
                     active[slot] = req.finish_t is None
                     sids[slot] = req.sid
                     steps[slot] = 1
+                slots = list(sched.slots)
+            if self._pipelines:
+                cache, dcache, carry, gap = self._advance_pipelines_step(
+                    cache, dcache, carry, active, sids, steps)
+                if gap:
+                    self.stats.prefill_gap_tokens.add(gap)
                 slots = list(sched.slots)
             if not active.any():
                 if sched.has_work():
@@ -1195,6 +1728,8 @@ class ServingEngine:
             self.stats.accept_len_sum += ell
             self.stats.accept_len_n += 1
             self.stats.lane_rounds += b
+            self.stats.prefill_lane_rounds += sum(
+                len(p.admitted) for p in self._pipelines)
             busy = int((n_eff > 0).sum())
             self.stats.busy_lane_rounds += busy
             n_sig = int(n_commit[active].sum()) if active.any() else 0

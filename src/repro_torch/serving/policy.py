@@ -2,7 +2,7 @@
 
 TIDE's core claim is *adaptive runtime control*: speculation and
 training activate only when beneficial.  Every host-side scheduling
-decision the engine makes between supersteps is delegated to one of two
+decision the engine makes between supersteps is delegated to one of three
 small policy objects, composed into a single ``ServingPolicy``:
 
   * ``AdmissionPolicy`` — which pending request enters a freed batch
@@ -12,6 +12,13 @@ small policy objects, composed into a single ``ServingPolicy``:
     ``DeadlineAdmission`` (earliest-deadline-first over
     ``Request.deadline``, the latency-SLO admission policy) and
     ``WeightedEdfAdmission``.
+  * ``CommitPolicy`` — how chunked-refill pipelines land in the live
+    device state.  ``CohortCommit`` (default) holds the pipelines of
+    one admission batch until the slowest finishes so their lanes
+    activate in one gap (decode rounds stay as dense as a one-shot
+    refill); ``EagerCommit`` commits each pipeline the moment its
+    prefill completes, trading round density for short-prompt TTFT
+    under mixed bursts.
   * ``SpeculationPolicy`` — the Eq. 5 adaptive gate (the per-round
     speculate-vs-plain threshold table) plus a runtime on/off control
     that can *park* speculation and signal capture when the
@@ -19,13 +26,14 @@ small policy objects, composed into a single ``ServingPolicy``:
     periodic forced-speculation acceptance probes.
 
 All policy decisions are host-side and land between superstep
-dispatches: a policy can reorder admission or swap the (fixed-shape)
-threshold table, but it never adds a device-to-host round-trip.
+dispatches: a policy can reorder admission, reshape refill groups or
+swap the (fixed-shape) threshold table, but it never adds a
+device-to-host round-trip.
 
-The JAX engine's commit, shed and preemption policies belong to the
-chunked-refill and overload paths, which are not ported; they come back
-with those paths.  Their ``ServingConfig`` knobs exist with JAX's
-defaults, and the engine refuses any other value.
+The JAX engine's shed and preemption policies belong to the overload
+path, which is not ported; they come back with it.  Their
+``ServingConfig`` knobs exist with JAX's defaults, and the engine
+refuses any other value.
 
 ``ServingConfig`` is the unified serving configuration consumed by
 ``ServingEngine``.
@@ -34,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from repro_torch.serving.request import Request
 
@@ -136,6 +144,45 @@ class WeightedEdfAdmission(DeadlineAdmission):
     def _key(self, r: Request) -> Tuple[float, int]:
         d = r.deadline if r.deadline is not None else math.inf
         return (d - self.weight * r.priority, -r.priority)
+
+
+# ======================================================== commit policies
+class CommitPolicy:
+    """Shapes chunked-refill pipelines and decides when they commit.
+
+    ``refill_groups`` partitions one admission batch into per-width
+    chunk pipelines (the scheduler's bucketing by default); ``cohort``
+    says whether the pipelines of one admission batch wait for each
+    other (commit together in one gap) or land one by one, each the
+    moment it finishes prefilling."""
+
+    name = "base"
+    cohort = True
+
+    def refill_groups(self, admitted: List[Tuple[int, Request]],
+                      prefill_chunk: int) -> List[List[Tuple[int, Request]]]:
+        from repro_torch.serving.scheduler import Scheduler
+        return Scheduler.refill_groups(admitted, prefill_chunk)
+
+
+class CohortCommit(CommitPolicy):
+    """Pipelines of one admission batch commit together when the slowest
+    member finishes (the default): lanes activate in the same gap, so
+    decode rounds stay as dense as a one-shot refill's."""
+
+    name = "cohort"
+
+
+class EagerCommit(CommitPolicy):
+    """Each pipeline commits the moment its prefill completes: a short
+    co-admitted prompt starts emitting at once instead of waiting out a
+    long sibling's multi-chunk pipeline.  Costs decode-round density
+    (staggered activations fragment rounds) for short-prompt TTFT under
+    mixed bursts; token streams are unchanged (per-request keys make
+    sampled ones scheduling-invariant too)."""
+
+    name = "eager"
+    cohort = False
 
 
 # =================================================== speculation policy
@@ -300,12 +347,13 @@ def _default_speculation() -> SpeculationPolicy:
 class ServingPolicy:
     """The composed serving control plane one engine runs under.
 
-    The default composition (FIFO admission + bare Eq. 5 gate) is
-    byte-parity with the pre-policy engine: identical streams, stats and
-    SignalStore contents."""
+    The default composition (FIFO admission + cohort commit + bare
+    Eq. 5 gate) is byte-parity with the pre-policy engine: identical
+    streams, stats and SignalStore contents."""
 
     admission: AdmissionPolicy = dataclasses.field(
         default_factory=FifoAdmission)
+    commit: CommitPolicy = dataclasses.field(default_factory=CohortCommit)
     speculation: SpeculationPolicy = dataclasses.field(
         default_factory=_default_speculation)
 
@@ -314,6 +362,7 @@ class ServingPolicy:
 ADMISSION_POLICIES = {"fifo": FifoAdmission, "priority": PriorityAdmission,
                       "deadline": DeadlineAdmission,
                       "wedf": WeightedEdfAdmission}
+COMMIT_POLICIES = {"cohort": CohortCommit, "eager": EagerCommit}
 
 
 @dataclasses.dataclass
@@ -323,11 +372,13 @@ class ServingConfig:
 
     The fields, their names and defaults, are JAX's.  ``greedy=False``
     serves sampled decoding, each request's stream keyed from ``seed``
-    and its admission ordinal.  ``prefill_chunk``, ``commit``,
-    ``preempt`` and ``shed`` away from their defaults name paths of the
-    JAX engine that are not ported yet, as does ``shed_queue_depth`` (it
-    bounds only the "queue" shed policy); the engine raises
-    ``NotImplementedError`` for any of them (``_unported``)."""
+    and its admission ordinal.  ``prefill_chunk`` > 0 (a multiple of 8)
+    serves chunked refill prefill, its pipelines landing under the
+    ``commit`` policy.  ``preempt`` and ``shed`` away from their
+    defaults name the JAX engine's overload path, which is not ported
+    yet, as does ``shed_queue_depth`` (it bounds only the "queue" shed
+    policy); the engine raises ``NotImplementedError`` for any of them
+    (``_unported``)."""
 
     # ---- engine geometry / decode
     gamma: int = 3
@@ -340,13 +391,13 @@ class ServingConfig:
     seed: int = 0                      # base key of the sampling streams
     # ---- admission / scheduling
     admission: str = "fifo"            # fifo | priority | deadline | wedf
-    commit: str = "cohort"             # unported: eager chunk commit
+    commit: str = "cohort"             # cohort | eager
     admission_lookahead: int = 64      # reorder window (non-FIFO policies)
     gate_arrivals: bool = False
     idle_wait_s: float = 0.005
     completion_sink: Optional[Callable[[Request], None]] = \
         dataclasses.field(default=None, repr=False)
-    # ---- unported: chunked refill prefill
+    # ---- chunked refill prefill (0 = one-shot; else a multiple of 8)
     prefill_chunk: int = 0
     # ---- tree speculation (0 = linear γ-chain drafts)
     # tree_width >= 1 drafts width first continuations, each a γ-deep
@@ -387,6 +438,7 @@ class ServingConfig:
                else adm_cls(lookahead=self.admission_lookahead))
         return ServingPolicy(
             admission=adm,
+            commit=COMMIT_POLICIES[self.commit](),
             speculation=SpeculationPolicy(
                 drafter, park_patience=self.spec_park_patience,
                 probe_interval=self.spec_probe_interval,

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import (Callable, Deque, Iterable, Iterator, List,
+from typing import (Callable, Deque, Dict, Iterable, Iterator, List,
                     Optional, Tuple)
 
 from repro_torch.obs.trace import NULL_TRACER
@@ -233,3 +233,27 @@ class Scheduler:
             self.tracer.counter("sched.queue_depth",
                                 depth=len(self._queue))
         return out
+
+    @staticmethod
+    def refill_groups(admitted: List[Tuple[int, Request]],
+                      prefill_chunk: int) -> List[List[Tuple[int, Request]]]:
+        """Chunk-aware partition of one admission batch into refill
+        pipelines.
+
+        A one-shot refill pads every co-admitted prompt to the longest,
+        so a short prompt that frees a slot beside a long one pays the
+        long prompt's width (and, chunked, would ride its whole
+        multi-chunk pipeline).  With chunking on, the engine runs one
+        chunk pipeline per *padded-width bucket* (multiples of 8, the
+        refill shape bucket): prompts of one bucket share a pipeline,
+        and the buckets' chunks interleave through the same gaps.
+        Admission order is kept within and across groups (the slots
+        were assigned in ``admit``), so this only shapes the refill
+        ops."""
+        if prefill_chunk <= 0:
+            return [admitted] if admitted else []
+        groups: Dict[int, List[Tuple[int, Request]]] = {}
+        for slot, req in admitted:
+            width = max(8, -(-len(req.prompt) // 8) * 8)
+            groups.setdefault(width, []).append((slot, req))
+        return list(groups.values())

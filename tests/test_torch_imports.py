@@ -84,8 +84,10 @@ def test_engine_without_device_needs_cuda(monkeypatch):
      "chunked refill prefill"),
 ])
 def test_engine_unported_paths_raise(kw, item):
-    """The unported paths raise naming their item; sampled decoding
-    (ROADMAP queue 1 item 4, once refused here) is served."""
+    """Paths once refused here are served: sampled decoding (ROADMAP
+    queue 1 item 4) and chunked refill prefill (item 5: dense, paged,
+    and a paged tree), each a short wave to its budgets, the chunked
+    ones through their chunk pipelines."""
     from repro_torch.configs import get
     from repro_torch.core import eagle
     from repro_torch.models import transformer as T
@@ -95,13 +97,15 @@ def test_engine_unported_paths_raise(kw, item):
     dcfg = eagle.draft_config(cfg)
     params = T.init(cfg, 0, device="cpu")
     dparams = eagle.draft_init(dcfg, 1, device="cpu")
-    if item == "sampled decoding":
-        _serves(ServingEngine(cfg, params, dcfg, dparams, device="cpu",
-                              config=ServingConfig(**kw)), kw)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(cfg, params, dcfg, dparams, device="cpu",
-                      config=ServingConfig(**kw))
+    eng = ServingEngine(cfg, params, dcfg, dparams, device="cpu",
+                        config=ServingConfig(**kw))
+    _serves(eng, kw)
+    if item == "chunked refill prefill":
+        assert eng.prefill_chunk == 16 and eng.stats.prefill_chunks > 0
+        assert eng.stats.prefill_op_width.max <= 16
+        if eng.paged:
+            eng.release_prefix_cache()
+            eng.allocator.assert_clean()
 
 
 @pytest.mark.parametrize("cls,kw", [

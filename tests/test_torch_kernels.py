@@ -928,6 +928,41 @@ def test_cuda_pad_shift_bitwise(cuda, kind, hq, hk, d, dtype):
         f"{kind}: rows at (pad, width +) {moved} differ from pad 0's"
 
 
+# ------------------------- a chunked refill's continuation shape (card)
+@pytest.mark.gpu
+def test_cuda_verify_chunk_shape(cuda):
+    """The verify kernel at the shape a chunked refill's continuation
+    gives it on glm4-9b: 8 lanes of T 128 query rows against a 512-row
+    staging cache, bf16, pads up to 400 (rows before a lane's pad see no
+    key and are zero), against its plain version at the bf16 tolerance
+    and at relative L2 below 1e-3; one launch, counted at T 128; and a
+    lane's rows do not move with its pad or the batch
+    (``pad_shift_departure("verify128")``)."""
+    b, t, hq, hk, d, s = 8, 128, 32, 2, 128, 512
+    q = _randn((b, t, hq, d), "bfloat16", cuda, 91)
+    k = _randn((b, s, hk, d), "bfloat16", cuda, 92)
+    v = _randn((b, s, hk, d), "bfloat16", cuda, 93)
+    lengths = torch.tensor([128, 256, 384, 136, 264, 200, 384, 0],
+                           dtype=torch.int32, device=cuda)
+    pad = torch.tensor([0, 7, 400, 3, 100, 5, 250, 64], dtype=torch.int32,
+                       device=cuda)
+    n0, n128 = verify_attention.launches, verify_attention.launches_at_t[t]
+    got = verify_attention(q, k, v, lengths, pad)
+    want = verify_attention_ref(q, k, v, lengths, pad)
+    torch.cuda.synchronize()
+    assert verify_attention.launches == n0 + 1
+    assert verify_attention.launches_at_t[t] == n128 + 1
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol("bfloat16"))
+    assert _rel_l2(got, want) < 1e-3
+    for lane in range(b):
+        blind = max(int(pad[lane]) - int(lengths[lane]), 0)
+        assert not got[lane, :blind].any(), "rows that see no key"
+    lane = lane_inputs(150, hq, hk, d, torch.bfloat16, cuda, 81)
+    assert pad_shift_departure("verify128", lane) is None
+
+
 # ------------------------------------- a refill's batch, layer by layer (card)
 @pytest.mark.gpu
 def test_cuda_cobatch_attention_never_departs(cuda):

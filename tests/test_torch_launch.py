@@ -136,13 +136,19 @@ def test_config_from_args_matches_jax(argv):
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_serve_refusals_name_their_item(argv, item, monkeypatch):
     """Refused before any weight is made (``T.init`` would raise).  The
-    item 4 flags, refused until sampling was ported, serve: the engine
-    takes ``--sample`` as ``greedy=False`` and ``--seed`` as its seed."""
-    if item == "item 4":
+    flags of items 4 and 5, refused until sampling and chunked refill
+    prefill were ported, serve: the engine takes ``--sample`` as
+    ``greedy=False``, ``--seed`` as its seed, ``--prefill-chunk`` as its
+    chunk width and ``--commit eager`` as its commit policy."""
+    if item in ("item 4", "item 5"):
         args = serve.build_parser().parse_args(SERVE_ARGV + argv)
         sys_, done = serve.main(SERVE_ARGV + argv, device="cpu")
-        assert sys_.engine.greedy is not args.sample
-        assert sys_.engine.config.seed == args.seed
+        eng = sys_.engine
+        assert eng.greedy is not args.sample
+        assert eng.config.seed == args.seed
+        assert eng.prefill_chunk == args.prefill_chunk
+        assert eng.policy.commit.name == args.commit
+        assert (eng.stats.prefill_chunks > 0) == (args.prefill_chunk > 0)
         assert len(done) == 8 and all(len(r.generated) == 32 for r in done)
         return
 

@@ -625,18 +625,24 @@ def test_requests_from_trace(tiny):
     (dict(shed="queue", shed_queue_depth=9), "item 6"),
     (dict(shed_queue_depth=9), "item 6"),
     (dict(greedy=False, seed=5), "item 4"),
+    (dict(prefill_chunk=8, commit="eager"), "item 5"),
 ], ids=["fleet", "commit", "preempt", "shed_expired", "shed_queue",
-        "shed_queue_depth", "sampling_seed"])
+        "shed_queue_depth", "sampling_seed", "chunked_eager"])
 def test_tide_unported_configs_raise(tiny, kw, item):
-    """Each unported configuration raises naming its item; sampled
-    decoding (item 4, once refused here) is served: the system's greedy
-    flag and seed reach the engine, and a wave reaches its budgets."""
-    if item == "item 4":
+    """Each unported configuration raises naming its item; those of
+    items 4 and 5 (sampled decoding, chunked refill prefill and its eager
+    commit), once refused here, are served: the system's knobs reach the
+    engine, and a wave reaches its budgets."""
+    if item in ("item 4", "item 5"):
         sys_ = _port_system(tiny, **kw)
-        assert sys_.engine.greedy is False
-        assert sys_.engine.config.seed == 5
+        eng = sys_.engine
+        assert eng.greedy is kw.get("greedy", True)
+        assert eng.config.seed == kw.get("seed", 0)
+        assert eng.prefill_chunk == kw.get("prefill_chunk", 0)
+        assert eng.policy.commit.name == kw.get("commit", "cohort")
         done = sys_.run(iter(tiny["waves"][:1]), max_new_tokens=8)
         assert [len(r.generated) for r in done] == [8, 8]
+        assert (eng.stats.prefill_chunks > 0) == bool(eng.prefill_chunk)
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         _port_system(tiny, **kw)
