@@ -122,7 +122,12 @@ Phases, one JSON line each:
            chain's streams at K 8, K 0, in waves of 4 and paged are
            equal, and tree W = 2's at K 8 and K 0; every sampling kernel
            launches.  Chunked refill prefill (chunk 32), greedy and
-           sampled: K 8, K 0, waves of 4 and paged equal.
+           sampled: K 8, K 0, waves of 4 and paged equal.  Overload
+           (batch 4, deadline admission on the round clock: four loose
+           residents, a tight pair at round 4, a loose tail), greedy and
+           sampled, dense and paged: preempt-on streams equal preempt-off
+           streams, at least one preemption, every spill restored or
+           dropped, no page leaked.
   serve    glm4-9b at full width and depth, random bf16 weights from a
            seeded generator: ServingEngine (batch 8, max_len 1024,
            gamma 3, K=8, greedy, no drafter) serves 16 requests (prompts
@@ -199,6 +204,28 @@ Phases, one JSON line each:
            After the 512-page serve, its longest prompt alone, twice:
            the second pipeline resumes from the shared prefix pages
            (fewer chunks, tokens saved) with the same stream.
+  overload_serve  the overload response on the serve's weights (batch
+           8, max_len 1024, gamma 3, K 8, greedy, deadline admission with
+           lookahead 8 over gated arrivals, the engine's clock bound to
+           its round count): OVERLOAD_ROWS (8 loose residents from round
+           0, 4 tight requests at round 10, 3 loose tail requests, one
+           hopeless request with deadline 4 at round 2; prompts 64-256),
+           three serves: (a) no preemption or shedding, (b)
+           preempt="deadline" and shed="expired", (c) as (b) paged at 512
+           pages of 16.  (b) and (c) assert at least one preemption,
+           restores plus dropped spills equal to preemptions, evictions
+           summed over the requests equal to them, one request shed with
+           an empty stream, every other stream equal to (a)'s bit for
+           bit, and the tight requests' deadline hits at least (a)'s;
+           (c) spilled pages and a clean allocator; each serve launches
+           the verify and prefill kernels.  Then the 8 residents alone
+           (budget 16, a trace that never overloads) without and with
+           (b)'s policies: equal streams, round stamps, supersteps and
+           host syncs.  Prints the counts, the tight requests' TTFT in
+           rounds, each spill's and restore's host ms and CUDA-event ms
+           (median), a spill's snapshot bytes against their bound at
+           3.35 TB/s (read once, written once), superstep ms, host syncs
+           per superstep and peak memory beside (a)'s.
   train    the draft's training step (the paper loop's step 8):
            DraftTrainer.train_cycle on the 16 63-token signal windows
            the serve phase's SignalExtractor collected (drained right
@@ -216,17 +243,18 @@ Phases, one JSON line each:
   tide     the synchronous adaptation loop (TideSystem, async_train
            False) on the serve's weights and untrained draft: batch 8,
            max_len 1024, gamma 3, K 8, signal_window 63, n_threshold 8
-           windows, TIDE_STEPS steps a cycle.  Stream 1 serves the 16
-           requests, training at request-completion boundaries (the
+           windows, TIDE_SYNC_STEPS steps a cycle.  Stream 1 serves the
+           16 requests, training at request-completion boundaries (the
            first cycle runs once 8 windows are in, and a draft the gate
            accepts serves from the next dispatch); stream 2 serves fresh
-           requests of the same prompts.  Reports each cycle (eval and
-           train accuracy, baseline, deployed, steps, seconds, engine
-           round, prefill and backward launches), the round and
-           superstep of each deploy, the mean accepted length of stream
-           1 before and after its first deploy and of stream 2, every
-           kernel's launches over the phase, peak memory.  Asserts both
-           streams equal the serve's, the gate deployed inside stream 1,
+           requests of the first TIDE_STREAM2 prompts.  Reports each
+           cycle (eval and train accuracy, baseline, deployed, steps,
+           seconds, engine round, prefill and backward launches), the
+           round and superstep of each deploy, the mean accepted length
+           of stream 1 before and after its first deploy and of stream
+           2, every kernel's launches over the phase, peak memory.
+           Asserts both streams equal the serve's (stream 2 its first
+           TIDE_STREAM2), the gate deployed inside stream 1,
            stream 2's mean accepted length is above 1.0, and each cycle
            launched the attention backward twice a step.
   reseed   the deploy-time re-seed of the draft cache at full width
@@ -245,11 +273,12 @@ Phases, one JSON line each:
            (the engine computes it in blocks of gamma + 1 columns,
            serving's extend shapes).
   tide_async  TideSystem in async mode (async_train True, reseed_window
-           16, otherwise the tide phase's configuration) on the serve's
-           weights and untrained draft: the training service's thread
-           trains on a CUDA stream of its own while the serving thread
-           serves the 16 requests as stream 1, then again as stream 2
-           (a third stream only if no deploy was picked up by then).
+           16, TIDE_STEPS steps a cycle, otherwise the tide phase's
+           configuration) on the serve's weights and untrained draft:
+           the training service's thread trains on a CUDA stream of its
+           own while the serving thread serves the 16 requests as
+           stream 1, then the first TIDE_STREAM2 again as stream 2 (a
+           third such stream only if no deploy was picked up by then).
            Each stream and superstep is timed with the serving stream's
            synchronize, never the device's.  Reports the card count and
            pick_training_device(), each cycle (event, seconds, the
@@ -275,7 +304,8 @@ Phases, one JSON line each:
            block the host more than the chain.  Each engine is freed
            before the next is built.
 
-Then a ``total`` line with the run's seconds, and the kernel table
+Then a ``total`` line with the run's seconds and the overload_serve
+and tide phases' seconds, and the kernel table
 (``{"kernels": [...]}``: eleven rows, each with its launch count from
 the main-path serve (for flash_attention_bwd, the train phase; for the
 sampling kernels, the dense sampled serve) that runs it, the launch
@@ -284,7 +314,8 @@ phase's count
 device_ms and host_ms), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel row also
 carries its launches in the dense cohort chunked serve
-(chunked_serve_launches).  Any failure raises
+(chunked_serve_launches) and in the overload phase's serve (b)
+(overload_serve_launches).  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
 at once.
 """
@@ -318,6 +349,14 @@ TRAIN_STEPS = 200
 # each window is seen 100 times (the train phase's ~107); at 200 the run
 # passed half its time limit
 TIDE_STEPS = TRAIN_STEPS // 2
+# the sync tide phase's steps a cycle, and both tide phases' requests
+# in each stream after the first, cut from TIDE_STEPS and 16 to make room
+# for the overload phase (the async phase keeps TIDE_STEPS: its cycle
+# must stay long enough for a superstep to be dispatched during it).  7
+# windows stay under a cycle's 8, so no third cycle trains a draft that
+# no stream serves
+TIDE_SYNC_STEPS = TRAIN_STEPS // 4
+TIDE_STREAM2 = 7
 
 
 T_START = time.perf_counter()
@@ -1776,6 +1815,7 @@ def phase_ladder():
         "tree W=2: stepwise / superstep / stream / wave streams differ"
     sampled = _sampled_ladder(cfg, params, dcfg, dparams)
     chunked = _chunked_ladder(cfg, params, dcfg, dparams, streams[8])
+    overload = _overload_ladder(cfg, params, dcfg, dparams)
     # the card's prefill against the CPU's (plain kernels) on one prompt
     toks = torch.tensor([np.random.default_rng(4).integers(
         0, cfg.vocab_size, size=48).tolist()], dtype=torch.int32)
@@ -1792,7 +1832,7 @@ def phase_ladder():
           "tree2_stepwise_superstep_stream_wave_equal": True,
           "tree2_requests_equal_chain": sum(
               a == b for a, b in zip(ref, streams[8])),
-          "sampled": sampled, "chunked": chunked,
+          "sampled": sampled, "chunked": chunked, "overload": overload,
           "prefill_logits_rel_err_vs_cpu": rel,
           "argmax_equal": bool(gpu.argmax() == cpu.argmax())})
     del params, dparams
@@ -1973,8 +2013,9 @@ def _timed_serve(eng, reqs):
         launches[name + "_tree"] = fns[name].tree_launches
     launches["verify_attention_by_t"] = dict(
         fns["verify_attention"].launches_at_t)
-    assert all(len(r.generated) == 64 and r.finish_t is not None
-               for r in reqs), "a request did not finish with its tokens"
+    assert all(r.finish_t is not None and len(r.generated) == (
+        0 if r.shed else r.max_new_tokens) for r in reqs), \
+        "a request did not finish with its tokens"
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
     st = eng.stats
     summary = {
@@ -2582,6 +2623,268 @@ def phase_chunked_serve(dense_eng, dense, dense_streams):
     return out
 
 
+# the overload phase's trace (rows of (arrives_at, deadline, budget), in
+# rounds of the engine's round clock): 8 loose residents from round 0, a
+# tight burst of 4 at round 10 while they decode, 3 loose tail requests
+# from round 0 and one hopeless request (deadline 4) at round 2
+OVERLOAD_ROWS = ([(0.0, 1000.0 + i, 64) for i in range(8)]
+                 + [(10.0, 40.0 + i, 16) for i in range(4)]
+                 + [(0.0, 1010.0 + i, 16) for i in range(3)]
+                 + [(2.0, 4.0, 16)])
+OVERLOAD_PLEN = (64, 256)
+
+
+def _overload_requests(vocab, rows, plen=OVERLOAD_PLEN, seed=9, sids=False):
+    """Gated requests of ``rows``, prompts of plen[0]-plen[1] tokens from
+    a fixed seed; ``sids`` numbers them in creation order (the sampled
+    streams' keys), else the engine numbers them at admission."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (at, deadline, new) in enumerate(rows):
+        n = int(rng.integers(plen[0], plen[1] + 1))
+        r = Request(prompt=rng.integers(0, vocab, size=n).tolist(),
+                    max_new_tokens=new, deadline=deadline)
+        r.arrives_at = at
+        r.sid = i if sids else None
+        out.append(r)
+    return out
+
+
+def _round_clock(eng):
+    """The engine's clock bound to its executed-round count
+    (tests/test_overload.py:84): arrivals, deadlines and every stamp are
+    rounds, so the schedule is deterministic."""
+    eng._clock = lambda: float(eng.stats.steps)
+    return eng
+
+
+def _overload_ladder(cfg, params, dcfg, dparams) -> dict:
+    """Preempt-on against preempt-off on a burst (batch 4: four loose
+    residents, a tight pair at round 4, one loose tail; prompts 16-128),
+    greedy and sampled (seed 5), dense and paged (page 16), held exactly;
+    each preempting serve spills and restores or drops every victim and
+    leaves a clean allocator."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    rows = ([(0.0, 1000.0 + i, 24) for i in range(4)]
+            + [(4.0, 20.0 + i, 8) for i in range(2)] + [(0.0, 1010.0, 8)])
+    out = {}
+    for greedy in (True, False):
+        for paged in (False, True):
+            runs = {}
+            for preempt in ("none", "deadline"):
+                conf = ServingConfig(
+                    batch_size=4, max_len=256, gamma=3, superstep_rounds=8,
+                    greedy=greedy, seed=5, admission="deadline",
+                    admission_lookahead=8, gate_arrivals=True,
+                    preempt=preempt, page_size=GLM["P"] if paged else 0)
+                eng = _round_clock(ServingEngine(
+                    cfg, params, dcfg, dparams, config=conf,
+                    device=torch.device("cuda")))
+                reqs = _overload_requests(cfg.vocab_size, rows, (16, 128),
+                                          seed=3, sids=True)
+                eng.serve_stream(iter(reqs))
+                assert all(len(r.generated) == r.max_new_tokens
+                           for r in reqs)
+                runs[preempt] = [list(r.generated) for r in reqs]
+                st = eng.stats
+                if preempt == "deadline":
+                    assert st.preemptions >= 1, "the ladder burst never " \
+                        "preempted"
+                    assert st.restores + eng._spills.dropped == \
+                        st.preemptions and not eng._spills
+                    n = (st.preemptions, st.restores)
+                if eng.paged:
+                    eng.release_prefix_cache()
+                    eng.allocator.assert_clean()
+                del eng
+            kind = ("greedy" if greedy else "sampled") + (
+                "_paged" if paged else "_dense")
+            assert runs["deadline"] == runs["none"], \
+                f"overload {kind}: preempt-on streams != preempt-off"
+            out[kind] = {"streams_equal_preempt_off": True,
+                         "preemptions": n[0], "restores": n[1]}
+    return out
+
+
+def _spill_bytes(sp) -> int:
+    """Bytes of one spill snapshot (a tree of tensors)."""
+    if torch.is_tensor(sp):
+        return sp.numel() * sp.element_size()
+    return sum(_spill_bytes(v) for v in sp.values())
+
+
+def _timed_overload_ops(eng):
+    """Wrap the engine's spill and restore ops: each call's host ms (the
+    host clock around it, nothing synchronized) and a CUDA event pair,
+    read after the serve; a spill's snapshot bytes.  Returns the record."""
+    rec = {"_spill": [], "_restore": []}
+    for name in rec:
+        fn = getattr(eng, name)
+
+        def run(*a, _fn=fn, _name=name, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = _fn(*a, **kw)
+            end.record()
+            host = (time.perf_counter() - t0) * 1e3
+            nbytes = _spill_bytes(out) if _name == "_spill" else 0
+            rec[_name].append((start, end, host, nbytes))
+            return out
+        setattr(eng, name, run)
+    return rec
+
+
+def _op_summary(calls) -> dict:
+    """Medians of the recorded ops (after a synchronize)."""
+    if not calls:
+        return {"n": 0}
+    ev = [s.elapsed_time(e) for s, e, _, _ in calls]
+    out = {"n": len(calls), "event_ms_median": statistics.median(ev),
+           "host_ms_median": statistics.median(h for _, _, h, _ in calls),
+           "event_ms": ev}
+    nbytes = calls[0][3]
+    if nbytes:
+        # a copy reads every byte once and writes it once
+        moved = 2 * nbytes
+        out.update(snapshot_bytes=nbytes, bytes_moved=moved,
+                   bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return out
+
+
+def phase_overload_serve(dense_eng):
+    """Overload on the serve phase's glm4-9b weights (full width and
+    depth, the EAGLE-3 draft): batch 8, max_len 1024, gamma 3, K 8,
+    greedy, deadline admission (lookahead 8) over gated arrivals on the
+    round clock, ``OVERLOAD_ROWS`` (prompts 64-256).  Three serves, each
+    on an engine of its own: (a) no preemption, no shedding; (b)
+    ``preempt="deadline"``, ``shed="expired"``; (c) as (b), paged at 512
+    pages of 16.  (b) and (c): at least one preemption, every spill
+    restored or dropped, one request shed with an empty stream, every
+    other stream equal to (a)'s bit for bit, the tight requests' deadline
+    hits at least (a)'s; (c): spilled pages, a clean allocator.  Every
+    serve launches the verify and prefill kernels.  Then a trace that
+    never overloads (the 8 residents, budget 16) without and with
+    (b)'s policies: equal streams, round stamps, supersteps and host
+    syncs.  Prints the counts, the burst's TTFT in rounds, each op's host
+    and event ms, a spill's bytes against its bound, superstep ms, host
+    syncs per superstep and peak memory beside (a)'s.  Returns (b)'s
+    launches."""
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    base = dict(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
+                superstep_rounds=8, admission="deadline",
+                admission_lookahead=8, gate_arrivals=True)
+    overload = dict(preempt="deadline", shed="expired")
+    vocab = dense_eng.cfg.vocab_size
+
+    def engine(**kw):
+        return _round_clock(ServingEngine(
+            dense_eng.cfg, dense_eng.params, dense_eng.dcfg,
+            dense_eng.dparams, config=ServingConfig(**base, **kw),
+            device=dense_eng.device,
+            extractor=SignalExtractor(SignalStore())))
+
+    def tight(reqs):
+        return reqs[8:12]
+
+    def hits(reqs):
+        return sum(r.finish_round is not None
+                   and r.finish_round <= r.deadline for r in tight(reqs))
+
+    ref, out = None, None
+    for name, kw in (("a", {}), ("b", overload),
+                     ("c", dict(overload, page_size=GLM["P"],
+                                num_pages=512))):
+        eng = engine(**kw)
+        ops = _timed_overload_ops(eng)
+        reqs = _overload_requests(vocab, OVERLOAD_ROWS)
+        t0 = time.perf_counter()
+        summary, launches = _timed_serve(eng, reqs)
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        prefill = "flash_attention_paged" if eng.paged else "flash_attention"
+        verify = ("verify_attention_paged" if eng.paged
+                  else "verify_attention")
+        for k in (prefill, verify, "extract_pack", "linear_rows"):
+            assert launches[k] > 0, (name, launches)
+        streams = [list(r.generated) for r in reqs]
+        row = {"phase": "overload_serve", "engine": name, "config": kw,
+               "requests": len(reqs), "wall_s": wall,
+               "tokens_per_s": st.tokens_out / wall,
+               "rounds": st.steps, "supersteps": st.dispatches,
+               "superstep_ms_median": summary["superstep_ms_median"],
+               "host_syncs_per_superstep":
+                   summary["host_syncs_per_superstep"],
+               "max_memory_allocated_GB":
+                   summary["max_memory_allocated_GB"],
+               "preemptions": st.preemptions, "restores": st.restores,
+               "dropped": eng._spills.dropped,
+               "shed_requests": st.shed_requests,
+               "evictions": sum(r.evictions for r in reqs),
+               "tight_deadline_hits": hits(reqs),
+               "tight_ttft_rounds": [r.first_token_round - r.arrives_at
+                                     for r in tight(reqs)],
+               "tight_finish_rounds": [r.finish_round for r in tight(reqs)],
+               "spill": _op_summary(ops["_spill"]),
+               "restore": _op_summary(ops["_restore"]),
+               "launches": launches, "nvidia_smi": smi()}
+        if name == "a":
+            ref = (streams, row)
+            assert st.preemptions == st.shed_requests == 0
+        else:
+            assert st.preemptions >= 1, f"({name}) never preempted"
+            assert st.restores + eng._spills.dropped == st.preemptions
+            assert not eng._spills, "spilled requests left parked"
+            assert row["evictions"] == st.preemptions
+            shed = [r for r in reqs if r.shed]
+            assert st.shed_requests == len(shed) == 1 and \
+                shed[0].generated == [], "the hopeless request was not shed"
+            differ = [i for i, r in enumerate(reqs)
+                      if not r.shed and streams[i] != ref[0][i]]
+            assert not differ, f"({name}) streams differ from (a): {differ}"
+            assert row["tight_deadline_hits"] >= ref[1]["tight_deadline_hits"]
+            row["streams_equal_a"] = True
+            row["a"] = {k: ref[1][k] for k in (
+                "tight_deadline_hits", "tight_ttft_rounds",
+                "superstep_ms_median", "host_syncs_per_superstep",
+                "max_memory_allocated_GB", "rounds", "tokens_per_s")}
+            if name == "b":
+                out = launches
+        if eng.paged:
+            row["spilled_pages"] = eng.allocator.spilled_pages
+            assert eng.allocator.spilled_pages > 0
+            eng.release_prefix_cache()
+            eng.allocator.assert_clean()
+        emit(row)
+        del eng, ops
+        torch.cuda.empty_cache()
+    # a trace that never overloads: (b)'s policies change nothing
+    idle = [(0.0, 1000.0 + i, 16) for i in range(8)]
+    seen = {}
+    for name, kw in (("off", {}), ("on", overload)):
+        eng = engine(**kw)
+        reqs = _overload_requests(vocab, idle)
+        eng.serve_stream(iter(reqs))
+        torch.cuda.synchronize()
+        assert eng.stats.preemptions == eng.stats.shed_requests == 0
+        seen[name] = ([list(r.generated) for r in reqs],
+                      [(r.admit_round, r.first_token_round, r.finish_round)
+                       for r in reqs],
+                      eng.stats.dispatches, eng.host_syncs)
+        del eng
+    assert seen["on"] == seen["off"], "preempt-on changed an idle serve"
+    emit({"phase": "overload_serve", "engine": "idle", "requests": 8,
+          "streams_stamps_supersteps_syncs_equal": True,
+          "supersteps": seen["on"][2],
+          "host_syncs_per_superstep": seen["on"][3] / seen["on"][2]})
+    return out
+
+
 def phase_train(cfg, params, dcfg, dparams, dense, dense_streams, batches):
     """The draft's training step on the card (the adaptation loop's
     synchronous training half): one ``DraftTrainer.train_cycle`` of
@@ -2674,8 +2977,9 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     mode on the serve phase's weights and untrained draft serves the 16
     requests as a stream, training at request-completion boundaries
     (the first cycle after the 8th window, deployed at the next
-    dispatch), then a second stream of the same prompts with the
-    deployed draft.  Both streams must equal the serve's, the gate must
+    dispatch), then a second stream of the first ``TIDE_STREAM2``
+    prompts with the deployed draft.  Both streams must equal the
+    serve's, the gate must
     have deployed, the second stream's mean accepted length must be
     above 1.0, and every cycle must launch the attention backward twice
     a step.  Acceptance inside the first stream is reported only."""
@@ -2686,7 +2990,7 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     tc = TideConfig(gamma=GLM["GAMMA"], batch_size=8, max_len=1024,
                     superstep_rounds=8, adaptive_spec=False,
                     signal_window=GLM["TRAIN_WINDOW"], n_threshold=8,
-                    train_epochs=2, train_min_steps=TIDE_STEPS, seed=0)
+                    train_epochs=2, train_min_steps=TIDE_SYNC_STEPS, seed=0)
     system = TideSystem(cfg, params, tc, dparams=dparams, device="cuda")
     eng = system.engine
     fns = dict(_kernel_fns(), flash_attention_bwd=flash_attention_bwd)
@@ -2716,8 +3020,8 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     streams, walls, marks = [], [], []
-    for _ in range(2):
-        reqs = _serve_requests(cfg.vocab_size)
+    for n in (16, TIDE_STREAM2):
+        reqs = _serve_requests(cfg.vocab_size)[:n]
         marks.append(len(eng.stats.timeline))
         t0 = time.perf_counter()
         system.run_stream(iter(reqs))
@@ -2736,7 +3040,8 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
                                  "deployed", "steps", "seconds",
                                  "engine_steps")} | cyc
               for e, cyc in zip(system.events, cycles)]
-    row = {"phase": "tide", "model": cfg.name, "requests": 16,
+    row = {"phase": "tide", "model": cfg.name,
+           "requests": [16, TIDE_STREAM2],
            "config": {k: getattr(tc, k) for k in (
                "batch_size", "max_len", "gamma", "superstep_rounds",
                "signal_window", "n_threshold", "train_epochs",
@@ -2748,7 +3053,8 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
            "stream1_accept_before_first_deploy": _mean_accept(one[:first]),
            "stream1_accept_after_first_deploy": _mean_accept(one[first:]),
            "stream2_mean_accept_len": _mean_accept(two),
-           "streams_equal_serve": [s == dense_streams for s in streams],
+           "streams_equal_serve": [s == dense_streams[:len(s)]
+                                   for s in streams],
            "serve_mean_accept_len": dense["mean_accept_len"],
            "summary": system.summary(), "launches": launches,
            "trainer_failures": system.service.failures,
@@ -2767,7 +3073,8 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     assert ran[0] == ran[1] == ran[2] == row["summary"]["train_cycles"], \
         f"cycles run/recorded/trained differ: {ran}"
     assert streams[0] == dense_streams, "stream 1 != the serve's streams"
-    assert streams[1] == dense_streams, "stream 2 != the serve's streams"
+    assert streams[1] == dense_streams[:TIDE_STREAM2], \
+        "stream 2 != the serve's streams"
     assert events and row["gate_version"] >= 1, "the gate never deployed"
     assert deploys and deploys[0]["round"] < len(one), \
         "no deploy inside the first stream"
@@ -2924,8 +3231,9 @@ def phase_reseed(cfg, params, dcfg, dparams):
 def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
                      sync_row):
     """The asynchronous adaptation loop on the card: ``TideSystem`` with
-    ``async_train=True`` serves the 16 requests twice while its service
-    thread trains on its own CUDA stream, and each deploy picked up at a
+    ``async_train=True`` serves the 16 requests, then the first
+    ``TIDE_STREAM2`` again, while its service thread trains on its own
+    CUDA stream, and each deploy picked up at a
     superstep re-seeds the resident lanes' draft caches.  Streams and
     supersteps are timed with the serving stream's synchronize (a
     device-wide one would wait for training too)."""
@@ -2997,7 +3305,8 @@ def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
     t_phase = time.perf_counter()
     streams, walls, marks = [], [], []
     while len(streams) < 2 or (not deploys and len(streams) < 3):
-        reqs = _serve_requests(cfg.vocab_size)
+        reqs = _serve_requests(cfg.vocab_size)[
+            :TIDE_STREAM2 if streams else 16]
         marks.append(len(eng.stats.timeline))
         serving.synchronize()
         t0 = time.perf_counter()
@@ -3031,7 +3340,8 @@ def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
     during = [ms for ms, d in steps_ms if d]
     outside = [ms for ms, d in steps_ms if not d]
     summary = system.summary()
-    row = {"phase": "tide_async", "model": cfg.name, "requests": 16,
+    row = {"phase": "tide_async", "model": cfg.name,
+           "requests": [len(x) for x in streams],
            "config": {k: getattr(tc, k) for k in (
                "batch_size", "max_len", "gamma", "superstep_rounds",
                "signal_window", "n_threshold", "train_epochs",
@@ -3054,7 +3364,8 @@ def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
                _mean_accept(parts[0][first:])
                if deploys and deploys[0]["stream"] == 1 else None),
            "stream_mean_accept_len": [_mean_accept(p) for p in parts],
-           "streams_equal_serve": [x == dense_streams for x in streams],
+           "streams_equal_serve": [x == dense_streams[:len(x)]
+                                   for x in streams],
            "serve_mean_accept_len": dense["mean_accept_len"],
            "backward_launches_per_step": [
                e["flash_attention_bwd"] / max(e["steps"], 1) for e in events],
@@ -3074,7 +3385,7 @@ def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
     assert not thread_alive, "the training thread outlived close()"
     assert ran[0] == ran[1] == ran[2] >= 1, f"cycles run/recorded: {ran}"
     assert all(c["stream"] for c in cycles), "a cycle ran off its stream"
-    assert all(s == dense_streams for s in streams), \
+    assert all(s == dense_streams[:len(s)] for s in streams), \
         "an async stream != the serve's streams"
     assert any(c["dispatches_end"] > c["dispatches_start"] for c in cycles), \
         "no superstep was dispatched while a cycle ran"
@@ -3246,6 +3557,9 @@ def main():
     for name in ("threefry2x32", "categorical_rows"):
         launches[name] = sampled[name]
     chunked = phase_chunked_serve(eng, dense, dense_streams)
+    t0 = time.perf_counter()
+    overload = phase_overload_serve(eng)
+    overload_s = time.perf_counter() - t0
     model = (eng.cfg, eng.params, eng.dcfg, eng.dparams)
     del eng, trees
     import gc
@@ -3253,21 +3567,27 @@ def main():
     torch.cuda.empty_cache()
     launches["flash_attention_bwd"] = phase_train(*model, dense,
                                                   dense_streams, signals)
+    t0 = time.perf_counter()
     tide_row = phase_tide(*model, dense, dense_streams)
+    tide_s = time.perf_counter() - t0
     phase_reseed(*model)
     phase_tide_async(*model, dense, dense_streams, tide_row)
     del model
     emit({"phase": "total", "seconds": round(time.perf_counter() - T_START,
-                                             1)})
+                                             1),
+          "overload_serve_s": round(overload_s, 1),
+          "tide_s": round(tide_s, 1)})
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launch_phase_launches"] = launch.get(row["name"], 0)
         row["chunked_serve_launches"] = chunked.get(row["name"], 0)
+        row["overload_serve_launches"] = overload.get(row["name"], 0)
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "launch_phase_launches", "chunked_serve_launches")}
+        "library_ms", "launch_phase_launches", "chunked_serve_launches",
+        "overload_serve_launches")}
         for row in rows]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

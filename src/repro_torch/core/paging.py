@@ -1,5 +1,5 @@
 """Paged KV cache: block-table allocator and copy-on-write prefix sharing
-(port of ``repro/core/paging.py``; ``SpillStore`` is not ported yet).
+and the preemption spill store (port of ``repro/core/paging.py``).
 
   * **Page pools.**  Each attention K/V leaf is a pool of ``num_pages + 1``
     pages ``(num_pages + 1, P, Hk, D)``; page ``num_pages`` is the *trash
@@ -17,6 +17,10 @@
     token prefix, draft deploy seq)``: two lanes with equal keys hold
     equal page bytes, so a borrower adopts the donor's pages with no
     device compare.
+  * **Spill store.**  A preempted lane's serving state is gathered into
+    device buffers of its own (``SpilledLane``) and parked in a
+    ``SpillStore`` until a lane frees; ``PageAllocator.spill_lane``
+    releases its pages meanwhile.
 
 Differences from the JAX module: the device helpers update the pools
 **in place** (JAX returns new arrays that XLA writes into donated
@@ -150,6 +154,10 @@ class PageAllocator:
         self.prefix_tokens_saved = 0
         self.evictions = 0
         self.cow_forks = 0
+        # pages released by lane preemption (spilled off the lane);
+        # restores re-reserve through the normal path, so this counts
+        # spill events' page traffic, not a live balance
+        self.spilled_pages = 0
 
     # ------------------------------------------------------------ stats
     @property
@@ -170,7 +178,8 @@ class PageAllocator:
                 ("prefix_hits", lambda: self.prefix_hits),
                 ("prefix_tokens_saved", lambda: self.prefix_tokens_saved),
                 ("evictions", lambda: self.evictions),
-                ("cow_forks", lambda: self.cow_forks)):
+                ("cow_forks", lambda: self.cow_forks),
+                ("spilled_pages", lambda: self.spilled_pages)):
             registry.gauge(f"paging.{name}", fn=fn)
 
     def _note_use(self):
@@ -233,7 +242,19 @@ class PageAllocator:
                 self.dirty = True
 
     def lane_pages(self, lane: int) -> int:
+        """Pages the lane currently maps (a restore re-reserves exactly
+        this many to cover the same token range)."""
         return int((self.table[lane] != self.trash).sum())
+
+    def spill_lane(self, lane: int) -> int:
+        """Preemption's allocator half: release the victim lane's pages
+        after its rows were gathered into the spill store.  Returns the
+        page count released (the restore's reservation size) and counts
+        it under ``spilled_pages``."""
+        pages = self.lane_pages(lane)
+        self.free_lane(lane)
+        self.spilled_pages += pages
+        return pages
 
     # ------------------------------------------------------------- sharing
     def prefix_key(self, rows: int, width: int, pad: int,
@@ -388,3 +409,67 @@ def to_device(arr: np.ndarray, device) -> torch.Tensor:
     if device.type != "cuda":
         return host.to(device)
     return host.pin_memory().to(device, non_blocking=True)
+
+
+# ==================================================== lane spill store
+class SpilledLane:
+    """One preempted request parked off-lane.
+
+    ``slices`` is the engine's opaque per-lane snapshot: a tree of device
+    tensors gathered out of the live caches and superstep state by the
+    spill op (target KV groups and lengths/pad, draft KV and
+    lengths/pad, the per-lane carry, PRNG and capture-ring state, the
+    remaining token budget).  Each is a tensor of its own, never a view
+    of a live buffer (the engine writes those in place), and stays on
+    the device: the gather is enqueued like any other op and never
+    synced, so spilling adds no host round-trip.  ``pages`` is the
+    page count the lane mapped at spill time (paged serving re-reserves
+    exactly that many at restore; dense serving records 0)."""
+
+    __slots__ = ("request", "slices", "pages")
+
+    def __init__(self, request, slices, pages: int = 0):
+        self.request = request
+        self.slices = slices
+        self.pages = pages
+
+
+class SpillStore:
+    """Host-side parking lot for preempted lanes (rid-keyed, insertion
+    ordered).  Pure bookkeeping: the engine decides when to spill and
+    restore; the store only tracks the parked set and the traffic
+    counters (``spills``/``restores``/``dropped`` — dropped entries
+    are spilled requests that finished from already-in-flight
+    telemetry before any restore happened)."""
+
+    def __init__(self):
+        self._entries: "OrderedDict[int, SpilledLane]" = OrderedDict()
+        self.spills = 0
+        self.restores = 0
+        self.dropped = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __bool__(self) -> bool:
+        return bool(self._entries)
+
+    def put(self, entry: SpilledLane):
+        if entry.request.rid in self._entries:
+            raise AssertionError(
+                f"request {entry.request.rid} spilled twice")
+        self._entries[entry.request.rid] = entry
+        self.spills += 1
+
+    def pop(self, rid: int) -> SpilledLane:
+        self.restores += 1
+        return self._entries.pop(rid)
+
+    def drop(self, rid: int) -> SpilledLane:
+        self.dropped += 1
+        return self._entries.pop(rid)
+
+    def pending(self) -> List[SpilledLane]:
+        """Parked entries in spill order (the engine re-ranks by its
+        restore policy before claiming lanes)."""
+        return list(self._entries.values())

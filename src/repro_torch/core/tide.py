@@ -99,9 +99,11 @@ class TideConfig:
     admission: str = "fifo"           # fifo | priority | deadline | wedf
     commit: str = "cohort"            # cohort | eager (chunk pipelines)
     admission_lookahead: int = 64     # reorder window (non-FIFO policies)
-    preempt: str = "none"             # engine refuses another value
-    shed: str = "none"                # engine refuses another value
-    shed_queue_depth: int = 64
+    preempt: str = "none"             # none | deadline: spill a loose
+    #                                   lane for a tighter arrival
+    shed: str = "none"                # none | expired | queue: drop
+    #                                   hopeless queued requests
+    shed_queue_depth: int = 64        # queue-shed depth bound
     idle_wait_s: float = 0.005        # gated-arrival idle-tick bound
     spec_park_patience: int = 0       # >0: park speculation + capture
     spec_probe_interval: int = 8      # parked dispatches between probes

@@ -14,11 +14,12 @@ The flags, their names and defaults, are JAX's; ``build_parser`` and
 JAX feeds the Eq. 5 gate an analytic TPU roofline, the port measures
 T(n) and D0 on the serving device (``measure_profile``).  Refused, each
 naming its ROADMAP queue 1 item: ``--dryrun`` (9), ``--fleet-replicas``
-and ``--trainer-endpoint`` (7), and through the engine's ``_unported``
-``--preempt`` and ``--shed`` (6).  ``--sample`` serves per-request-keyed
+and ``--trainer-endpoint`` (7).  ``--sample`` serves per-request-keyed
 sampled decoding from the engine base seed ``--seed``, JAX's threefry
 streams; ``--prefill-chunk C`` serves chunked refill prefill, its
-pipelines committing under ``--commit`` (cohort or eager).
+pipelines committing under ``--commit`` (cohort or eager); ``--preempt
+deadline`` and ``--shed`` serve the overload response (lane spill and
+restore, load shedding; superstep mode).
 
 ``main(argv, device="cpu")`` runs on the CPU; the pieces it calls
 (``serve_corpus``, ``measure_profile``, ``tide_config``, ``serve``,
@@ -110,10 +111,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "--continuous for non-fifo choices")
     ap.add_argument("--preempt", choices=["none", "deadline"],
                     default="none",
-                    help="preemption policy (not ported: item 6)")
+                    help="preemption policy: deadline spills the "
+                         "loosest resident lane when a tighter-deadline "
+                         "candidate is deferred against a full batch, "
+                         "and restores it mid-stream when a lane frees "
+                         "(superstep mode only)")
     ap.add_argument("--shed", choices=["none", "expired", "queue"],
                     default="none",
-                    help="load-shedding policy (not ported: item 6)")
+                    help="load-shedding policy: expired drops queued "
+                         "requests whose deadline already passed; queue "
+                         "bounds the arrived queue depth, dropping the "
+                         "loosest deadlines first")
     ap.add_argument("--shed-queue-depth", type=int, default=64,
                     help="arrived-queue depth bound for --shed queue")
     ap.add_argument("--commit", choices=["cohort", "eager"],
@@ -385,9 +393,8 @@ def main(argv=None, *, device=None):
     fleet_config_from_args(args)
     args.continuous = (args.continuous or args.gate_arrivals
                        or args.policy != "fifo")
-    from repro_torch.serving.engine import _unported, resolve_device
+    from repro_torch.serving.engine import resolve_device
     scfg = config_from_args(args)
-    _unported(scfg)
 
     import repro_torch.configs as configs
     from repro_torch.core import eagle

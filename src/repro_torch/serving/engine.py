@@ -94,10 +94,23 @@ Differences from the JAX engine:
     rows from the shared pages (``_chunk_resume``) instead of
     prefilling them.  In the stepwise loop each pipeline commits as it
     finishes, as in JAX.
-  * Only these slices are ported.  Preemption and load shedding raise
-    ``NotImplementedError`` naming their ROADMAP item (6, overload), and
-    so does any other value of a knob that only they read
-    (``shed_queue_depth``).
+  * Overload (``ServingConfig(preempt="deadline", shed=...)``,
+    superstep mode only for preemption): at each superstep boundary
+    (``_overload_boundary``) the shed policy drops hopeless queued
+    requests, and when the admission tier holds a tighter-deadline
+    candidate against a full batch the preemption policy picks a loose
+    resident lane to *spill*: one enqueued gather copies its whole
+    serving state (every target-cache group, through its table row on a
+    paged engine, the draft K/V, lengths and pad, the carry, activity,
+    step and PRNG state, the capture ring, the remaining budget) into
+    tensors of its own, which a ``paging.SpillStore`` parks on the
+    device.  When a lane frees, the *restore* writes them back in place
+    (through the lane's new table row), so the request resumes
+    mid-stream on any lane, its stream equal to a never-evicted run.
+    Neither op reads anything back to the host.  Unlike JAX's, a
+    victim's lane is inert from its spill until its next owner's refill
+    or commit, so a chunked refill into it does not take the victim's
+    tokens while it prefills.
 """
 from __future__ import annotations
 
@@ -136,7 +149,7 @@ _STATS_COUNTERS = (
     "lane_rounds", "busy_lane_rounds", "prefill_chunks",
     "prefill_lane_rounds", "prefill_row_tokens",
     "pages_peak", "prefix_hits", "prefix_tokens_saved",
-    "admission_deferrals",
+    "admission_deferrals", "preemptions", "restores", "shed_requests",
 )
 _STATS_FLOAT_COUNTERS = ("wall_s", "accept_len_sum")
 
@@ -265,23 +278,6 @@ for _name in _STATS_COUNTERS + _STATS_FLOAT_COUNTERS:
 del _name, _view
 
 
-def _unported(config: ServingConfig):
-    """Raise for every configuration outside the ported slices, naming
-    its ROADMAP queue 1 item."""
-    checks = (
-        (config.preempt != "none", f"preempt={config.preempt!r}", 6,
-         "overload"),
-        (config.shed != "none", f"shed={config.shed!r}", 6, "overload"),
-        (config.shed_queue_depth != ServingConfig.shed_queue_depth,
-         f"shed_queue_depth={config.shed_queue_depth}", 6, "overload"),
-    )
-    for bad, what, n, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1 item {n}: "
-                f"{item})")
-
-
 class _ChunkPipeline:
     """Host bookkeeping of one in-flight chunked refill group.
 
@@ -364,7 +360,6 @@ class ServingEngine:
                     f"ServingEngine got both config= and knob kwargs "
                     f"{clash}; set them on the ServingConfig instead")
             config = dataclasses.replace(config)
-        _unported(config)
         if config.prefill_chunk < 0 or config.prefill_chunk % 8:
             raise ValueError(f"prefill_chunk {config.prefill_chunk} must "
                              "be a multiple of 8 (refill shape bucket)")
@@ -420,6 +415,14 @@ class ServingEngine:
         self.prefill_chunk = config.prefill_chunk
         self._pipelines: List[_ChunkPipeline] = []
         self._cohort_next = 0
+        # parking lot of preempted lanes: each one's serving state,
+        # gathered into device tensors of its own at a superstep
+        # boundary, restored when a lane frees
+        self._spills = paging.SpillStore()
+        if self.policy.preemption.enabled and self.superstep_rounds <= 0:
+            raise ValueError(
+                "preemption requires superstep mode (superstep_rounds > "
+                "0): spill/restore only runs at superstep boundaries")
         self._sleep = time.sleep
         self._clock = time.perf_counter
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -528,6 +531,103 @@ class ServingEngine:
         return eagle.reseed_draft_rows_from_ring(
             self.dcfg, dparams, self.params["embed"], dcache, *ring,
             block=self.gamma + 1)
+
+    # ------------------------------------------ preemption spill/restore
+    # The spill gathers one lane's whole serving state into tensors of
+    # its own: every op that touches a live buffer writes it in place,
+    # so a view would change under the next refill of the lane.  The
+    # restore writes a snapshot back into a free lane, in place; on a
+    # paged engine through the lane's *new* table row, so the physical
+    # pages may differ while the logical rows are equal.  Both are
+    # enqueued behind the in-flight superstep and read nothing back.
+    _STATE_LEAVES = ("active", "gen_count", "sid", "step_idx")
+    _RING_LEAVES = ("cap_feats", "cap_toks", "cap_count")
+
+    @staticmethod
+    def _cache_leaves(cache):
+        """(group, pos, leaf, tensor) of every target K/V leaf."""
+        for g, v in cache.items():
+            if g in ("lengths", "pad", "page_tbl"):
+                continue
+            for pos, entry in v.items():
+                for leaf, t in entry.items():
+                    yield g, pos, leaf, t
+
+    def _spill(self, cache, dcache, state, max_new, lane: int):
+        """Snapshot lane ``lane``: target rows (repeats, max_len, Hk, D)
+        per leaf (through the lane's table row on a paged engine), draft
+        K/V (max_len, Hk, D), both caches' lengths and pad, the carry,
+        the per-lane superstep state, the capture ring when present, and
+        the remaining budget.  Every tensor is a copy."""
+        def take(t):
+            return t[lane].clone()
+
+        if self.paged:
+            trow = cache["page_tbl"][lane].long()
+            dtrow = dcache["tbl"][lane].long()
+
+            def lane_rows(pool, row):
+                # (..., NP + 1, P, Hk, D) -> (..., max_len, Hk, D)
+                v = pool[..., row, :, :, :]
+                return v.reshape(v.shape[:-4] + (-1,) + v.shape[-2:])
+
+            rows = {(g, p, leaf): lane_rows(t, trow)
+                    for g, p, leaf, t in self._cache_leaves(cache)}
+            dk = lane_rows(dcache["k"], dtrow)
+            dv = lane_rows(dcache["v"], dtrow)
+        else:
+            rows = {(g, p, leaf): t[:, lane].clone()
+                    for g, p, leaf, t in self._cache_leaves(cache)}
+            dk, dv = take(dcache["k"]), take(dcache["v"])
+        st = {"feats": take(state.carry.feats),
+              "tokens": take(state.carry.tokens),
+              "advance": take(state.carry.advance)}
+        for name in self._STATE_LEAVES:
+            st[name] = take(getattr(state, name))
+        if state.cap_feats is not None:
+            for name in self._RING_LEAVES:
+                st[name] = take(getattr(state, name))
+        return {"cache": rows,
+                "clen": take(cache["lengths"]), "cpad": take(cache["pad"]),
+                "dk": dk, "dv": dv,
+                "dlen": take(dcache["lengths"]),
+                "dpad": take(dcache["pad"]),
+                "state": st, "budget": take(max_new)}
+
+    def _restore(self, cache, dcache, state, max_new, lane: int, sp):
+        """Write a ``_spill`` snapshot into lane ``lane``, in place.  On a
+        paged engine the rows go through the lane's shipped table row:
+        rows past its re-reservation map the trash page (unmapped table
+        entries hold its id), as JAX's ``page_slot`` routes them.
+        Returns (cache, dcache, state, max_new)."""
+        if self.paged:
+            pos = torch.arange(self.max_len, device=self.device)[None]
+            trash = self.num_pages
+            page, slot = paging.page_slot(cache["page_tbl"][lane][None],
+                                          self.page_size, pos, trash)
+            for g, p, leaf, t in self._cache_leaves(cache):
+                t[:, page[0], slot[0]] = sp["cache"][(g, p, leaf)]
+            page, slot = paging.page_slot(dcache["tbl"][lane][None],
+                                          self.page_size, pos, trash)
+            dcache["k"][page[0], slot[0]] = sp["dk"]
+            dcache["v"][page[0], slot[0]] = sp["dv"]
+        else:
+            for g, p, leaf, t in self._cache_leaves(cache):
+                t[:, lane] = sp["cache"][(g, p, leaf)]
+            dcache["k"][lane] = sp["dk"]
+            dcache["v"][lane] = sp["dv"]
+        cache["lengths"][lane] = sp["clen"]
+        cache["pad"][lane] = sp["cpad"]
+        dcache["lengths"][lane] = sp["dlen"]
+        dcache["pad"][lane] = sp["dpad"]
+        st = sp["state"]
+        for name in ("feats", "tokens", "advance"):
+            getattr(state.carry, name)[lane] = st[name]
+        for name in self._STATE_LEAVES + (
+                self._RING_LEAVES if state.cap_feats is not None else ()):
+            getattr(state, name)[lane] = st[name]
+        max_new[lane] = sp["budget"]
+        return cache, dcache, state, max_new
 
     def _lane_keys(self, sids, steps):
         """Per-lane keys ``fold_in(fold_in(base, sid), step)``: the
@@ -704,14 +804,15 @@ class ServingEngine:
     def reset_adaptation(self, dparams):
         """Back to the post-construction adaptive state: draft params,
         acceptance EMA, deploy and sid counters, the page allocator,
-        stats, the chunk pipelines and the speculation policy (JAX's,
-        less the spill store, which the port does not have)."""
+        stats, the chunk pipelines, the spill store and the speculation
+        policy, as in JAX."""
         self.dparams = dparams
         self.accept_ema = 1.0
         self._deploy_seq = 0
         self._sid_next = 0
         self._pipelines = []
         self._cohort_next = 0
+        self._spills = paging.SpillStore()
         if self.allocator is not None:
             self.allocator.reset()
         self.stats = ServingStats(registry=self.metrics)
@@ -730,13 +831,14 @@ class ServingEngine:
         reg.gauge("spec.tree_width", fn=lambda: self.tree_width)
         reg.gauge("spec.gamma", fn=lambda: self.gamma)
         reg.gauge("spec.accept_ema", fn=lambda: self.accept_ema)
+        reg.gauge("serving.spilled_requests", fn=lambda: len(self._spills))
         if self.allocator is not None:
             self.allocator.register_metrics(reg)
         else:
             # dense engines expose the namespace too (all zero)
             for name in ("pages_in_use", "pages_free", "pages_peak",
                          "prefix_hits", "prefix_tokens_saved", "evictions",
-                         "cow_forks"):
+                         "cow_forks", "spilled_pages"):
                 reg.gauge(f"paging.{name}")
 
     def _spec_transition(self, kind: str, fields: dict):
@@ -914,9 +1016,201 @@ class ServingEngine:
         for r in sched.release_finished():
             if on_complete is not None:
                 on_complete(r)
+        self._shed_queue(sched, on_complete)
         admitted = sched.admit()
         self._assign_sids(admitted)
         return admitted
+
+    # ------------------------------------------- overload boundary
+    # One host pass per superstep boundary: retire finished lanes, drop
+    # spill entries that finished from in-flight telemetry, shed hopeless
+    # queue entries, restore spilled requests whose effective deadline
+    # beats the queue head, admit, preempt-and-admit while the admission
+    # tier holds a tighter candidate against a full batch, then hand the
+    # free lanes left to the remaining spilled requests.  No added host
+    # sync: spills and restores are enqueued behind the in-flight
+    # superstep.
+    def _overload_boundary(self, sched: Scheduler, on_complete, cache,
+                           dcache, state, max_new):
+        """Superstep-mode twin of ``_retire_and_admit`` that also runs
+        the spill/restore and preemption machinery.  Returns (cache,
+        dcache, state, max_new, the new (slot, request) refills)."""
+        if self.paged:
+            self._free_finished_lanes(sched)
+        for r in sched.release_finished():
+            if on_complete is not None:
+                on_complete(r)
+        if self._spills:
+            self._drop_finished_spills(sched, on_complete)
+        self._shed_queue(sched, on_complete)
+        if self._spills:
+            cache, dcache, state, max_new = self._restore_spilled(
+                sched, cache, dcache, state, max_new, rank_queue=True)
+        admitted = sched.admit()
+        if self.policy.preemption.enabled and sched.has_pending():
+            admitted += self._preempt_admit(
+                sched, cache, dcache, state, max_new,
+                {id(r) for _, r in admitted})
+        if self._spills:
+            cache, dcache, state, max_new = self._restore_spilled(
+                sched, cache, dcache, state, max_new, rank_queue=False)
+        self._assign_sids(admitted)
+        return cache, dcache, state, max_new, admitted
+
+    def _shed_queue(self, sched: Scheduler, on_complete):
+        """Load shedding: the shed policy's picks among the arrived queue
+        finish at once with nothing generated, flagged ``shed``, and
+        route through the completion path.  The default ``none`` policy
+        never touches the scheduler."""
+        pol = self.policy.preemption.shed
+        if pol.name == "none":
+            return
+        victims = pol.pick(sched.queue_view(), self.stats.steps)
+        if not victims:
+            return
+        for r in victims:
+            r.shed = True
+            self.stats.shed_requests += 1
+            self._finish(r)
+        sched.shed(victims)
+        for r in victims:
+            if on_complete is not None:
+                on_complete(r)
+
+    def _drop_finished_spills(self, sched: Scheduler, on_complete):
+        """A spilled request can finish *while parked*: the superstep in
+        flight at spill time still carried its lane, so its last tokens
+        commit from that superstep's telemetry.  Its pages were freed at
+        the spill; drop the entry and route the request to completion
+        once."""
+        for e in list(self._spills.pending()):
+            if e.request.finish_t is not None:
+                self._spills.drop(e.request.rid)
+                sched.retire(e.request)
+                if on_complete is not None:
+                    on_complete(e.request)
+
+    @staticmethod
+    def _edl(r: Request):
+        """Effective-deadline sort key (tightest first), the order the
+        preemption policy victimizes in reverse."""
+        return (r.deadline if r.deadline is not None else float("inf"),
+                -r.priority)
+
+    def _restore_spilled(self, sched: Scheduler, cache, dcache, state,
+                         max_new, *, rank_queue: bool):
+        """Move spilled requests back onto free lanes, tightest first.
+        With ``rank_queue`` (the pass before admission) only entries at
+        least as tight as the queue head may claim a lane, so a restore
+        never starves a tighter queued candidate; the pass after
+        admission hands out the lanes still free.  A restored lane
+        resumes mid-stream where it left off."""
+        free = [i for i, s in enumerate(sched.slots) if s is None]
+        if not free or not self._spills:
+            return cache, dcache, state, max_new
+        entries = sorted(self._spills.pending(),
+                         key=lambda e: self._edl(e.request))
+        if rank_queue:
+            head = sched.peek_next()
+            if head is not None:
+                hd = self._edl(head)
+                entries = [e for e in entries if self._edl(e.request) <= hd]
+        for slot in free:
+            if not entries:
+                break
+            e = entries[0]
+            if self.paged:
+                if not self.allocator.reserve(slot,
+                                              e.pages * self.page_size):
+                    break        # pool pressure: the entry stays parked
+                self._sync_paged_stats()
+                # the restore writes through the lane's new table row
+                cache, dcache = self._ship_tables(cache, dcache)
+            entries.pop(0)
+            self._spills.pop(e.request.rid)
+            with self.tracer.span("preempt.restore", rid=e.request.rid,
+                                  slot=slot):
+                cache, dcache, state, max_new = self._restore(
+                    cache, dcache, state, max_new, slot, e.slices)
+            sched.slots[slot] = e.request
+            self.stats.restores += 1
+            if self.recorder.enabled:
+                self.recorder.note(e.request.rid, "restore",
+                                   round_=self.stats.steps, slot=slot)
+        return cache, dcache, state, max_new
+
+    def _victim_candidates(self, sched: Scheduler, new_ids):
+        """Residents eligible for preemption: decoding lanes only, never
+        this boundary's admissions (their refill is not built yet) and
+        never lanes mid-chunk-prefill (their rows live in a pipeline's
+        staging caches, not the live buffers)."""
+        in_pipe = {id(r) for pl in self._pipelines for _, r in pl.admitted}
+        out = []
+        for slot, r in enumerate(sched.slots):
+            if r is None or r.finish_t is not None:
+                continue
+            if id(r) in new_ids or id(r) in in_pipe:
+                continue
+            if r.first_token_t is None:
+                continue
+            out.append((slot, r))
+        return out
+
+    def _spill_victim(self, sched: Scheduler, slot: int, cache, dcache,
+                      state, max_new):
+        """Evict one resident lane into the spill store.  The gather reads
+        the bindings after the in-flight superstep, whose tokens for this
+        lane commit at the next drain through the pending record's
+        request reference, so the snapshot and the host stream stay in
+        phase."""
+        req = sched.slots[slot]
+        with self.tracer.span("preempt.spill", rid=req.rid, slot=slot):
+            slices = self._spill(cache, dcache, state, max_new, slot)
+            # the lane is inert until its next owner's refill or commit:
+            # under chunked refill its new owner prefills for a few
+            # supersteps, and a lane left active would go on decoding the
+            # victim's stream into the new owner's (the JAX engine leaves
+            # it active; ROADMAP, Reference state)
+            state.active[slot] = False
+        pages = 0
+        if self.paged:
+            pages = self.allocator.spill_lane(slot)
+        self._spills.put(paging.SpilledLane(req, slices, pages))
+        sched.evict(slot)
+        req.evictions += 1
+        self.stats.preemptions += 1
+        if self.recorder.enabled:
+            self.recorder.note(req.rid, "preempt",
+                               round_=self.stats.steps, slot=slot)
+
+    def _preempt_admit(self, sched: Scheduler, cache, dcache, state,
+                       max_new, new_ids):
+        """Deadline preemption: while the batch is full and the admission
+        tier holds a candidate, ask the policy for a victim among the
+        residents, spill it and admit into its slot.  Stops when the
+        policy declines or the admission guard defers the candidate."""
+        pol = self.policy.preemption
+        out: List[Tuple[int, Request]] = []
+        evicted = 0
+        while (sched.has_pending() and evicted < self.batch
+               and all(s is not None for s in sched.slots)):
+            cand = sched.peek_next()
+            if cand is None:
+                break
+            victim = pol.select_victim(
+                cand, self._victim_candidates(sched, new_ids),
+                self.stats.steps)
+            if victim is None:
+                break
+            self._spill_victim(sched, victim, cache, dcache, state,
+                               max_new)
+            evicted += 1
+            got = sched.admit()
+            if not got:
+                break       # guard deferred: the lane stays free for a restore
+            out += got
+            new_ids |= {id(r) for _, r in got}
+        return out
 
     def _refill_arrays(self, admitted: List[Tuple[int, Request]]):
         """Host-side packing of a refill batch: rows padded to a power of
@@ -1443,12 +1737,22 @@ class ServingEngine:
                 if not dispatched:
                     wait = sched.next_arrival_in()
                     if wait is None and not sched.more_coming():
+                        if self._spills:
+                            # unreachable by construction: every free
+                            # lane is offered to the spill store at each
+                            # boundary before the loop can go idle
+                            raise RuntimeError(
+                                f"{len(self._spills)} spilled requests "
+                                "were never restored")
                         break
                     self._idle_tick(wait)
                 continue
             with self.tracer.span("superstep.unpack"):
                 progressed = self._drain(prev, t0)
-            admitted = self._retire_and_admit(sched, on_complete)
+            n_restores0 = self.stats.restores
+            cache, dcache, state, max_new, admitted = \
+                self._overload_boundary(sched, on_complete, cache, dcache,
+                                        state, max_new)
             gap_tokens = 0
             if admitted and self.prefill_chunk:
                 # chunked: new pipelines, whose first chunks run in the
@@ -1492,7 +1796,8 @@ class ServingEngine:
                     gap_tokens += gap
             if gap_tokens:
                 self.stats.prefill_gap_tokens.add(gap_tokens)
-            stall = 0 if (progressed or admitted or gap_tokens) \
+            stall = 0 if (progressed or admitted or gap_tokens
+                          or self.stats.restores > n_restores0) \
                 else stall + 1
             if stall > 4:
                 raise RuntimeError(

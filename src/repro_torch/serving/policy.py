@@ -30,10 +30,12 @@ dispatches: a policy can reorder admission, reshape refill groups or
 swap the (fixed-shape) threshold table, but it never adds a
 device-to-host round-trip.
 
-The JAX engine's shed and preemption policies belong to the overload
-path, which is not ported; they come back with it.  Their
-``ServingConfig`` knobs exist with JAX's defaults, and the engine
-refuses any other value.
+The overload response is the fourth seam: a ``PreemptionPolicy``
+(``DeadlinePreemption`` lets a deferred tight-deadline candidate evict
+the loosest resident lane, which the engine spills and later restores
+mid-stream) composed with a ``ShedPolicy`` (``ExpiredShed``,
+``QueueDepthShed``: which queued requests to drop).  The defaults never
+preempt and never shed.
 
 ``ServingConfig`` is the unified serving configuration consumed by
 ``ServingEngine``.
@@ -338,6 +340,142 @@ class SpeculationPolicy:
         return self.parked
 
 
+# ==================================================== shed policies
+class ShedPolicy:
+    """Load shedding for sustained overload: which *queued* requests to
+    drop instead of serving.  Consulted once per superstep boundary
+    with the arrived queue window; returned requests are finished with
+    zero tokens, flagged ``Request.shed``, and never re-admitted.
+    Deadline comparisons use the engine's executed-round clock
+    (``stats.steps``) — the same deterministic units the SLO benches
+    stamp deadlines in."""
+
+    name = "none"
+
+    def pick(self, queued: Sequence[Request],
+             now_round: int) -> List[Request]:
+        return []
+
+
+class ExpiredShed(ShedPolicy):
+    """Shed queued requests whose (round-unit) deadline already passed:
+    they cannot hit their SLO, so serving them only steals rounds from
+    requests that still can.  Requests without a deadline never
+    expire."""
+
+    name = "expired"
+
+    def pick(self, queued: Sequence[Request],
+             now_round: int) -> List[Request]:
+        return [r for r in queued
+                if r.deadline is not None and r.deadline < now_round]
+
+
+class QueueDepthShed(ShedPolicy):
+    """Bound the arrived-queue depth: when it exceeds ``depth``, shed
+    the loosest-deadline overflow (weighted-EDF order reversed) — the
+    classic drop-from-the-tail overload valve."""
+
+    name = "queue"
+
+    def __init__(self, depth: int = 64):
+        self.depth = max(int(depth), 1)
+
+    def pick(self, queued: Sequence[Request],
+             now_round: int) -> List[Request]:
+        over = len(queued) - self.depth
+        if over <= 0:
+            return []
+        loosest = sorted(
+            queued,
+            key=lambda r: (r.deadline if r.deadline is not None
+                           else math.inf, -r.priority),
+            reverse=True)
+        return loosest[:over]
+
+
+# ================================================= preemption policies
+class PreemptionPolicy:
+    """Decides whether a deferred tight-deadline candidate may evict a
+    resident lane (spill its caches + capture state to the host-side
+    ``core.paging.SpillStore``, free its pages, hand the lane over).
+
+    The fourth seam of the control plane, beside Admission / Commit /
+    Speculation.  Consulted at the superstep boundary after normal
+    admission, once per still-deferred candidate; ``select_victim``
+    returns the slot index to spill or None.  The engine restores
+    spilled requests into lanes as they free up (earliest effective
+    deadline first, competing with the queue), so an evicted request
+    resumes mid-stream — byte-identical to a never-evicted run.  The
+    base policy never preempts (the byte-parity default); it also owns
+    the composed ``ShedPolicy``, since shedding and preemption are the
+    two halves of one overload response."""
+
+    name = "none"
+
+    def __init__(self, shed: Optional[ShedPolicy] = None,
+                 max_evictions: int = 2, margin: float = 0.0):
+        self.shed = shed if shed is not None else ShedPolicy()
+        # per-request eviction cap: a loose request can only be bounced
+        # this many times before it becomes un-evictable (starvation
+        # guard — otherwise a sustained tight-deadline burst could
+        # spill/restore the same victim forever)
+        self.max_evictions = int(max_evictions)
+        # a victim's deadline must exceed the candidate's by at least
+        # this margin (round units) — spilling costs a restore prefill,
+        # so near-ties are not worth the churn
+        self.margin = float(margin)
+
+    @property
+    def enabled(self) -> bool:
+        return False
+
+    def select_victim(self, candidate: Request,
+                      residents: Sequence[Tuple[int, Request]],
+                      now_round: int) -> Optional[int]:
+        """Slot index (from ``residents``: (slot, request) pairs) to
+        spill for ``candidate``, or None to leave it queued."""
+        return None
+
+
+class DeadlinePreemption(PreemptionPolicy):
+    """Deadline-aware preemption: a deferred candidate with a tighter
+    deadline evicts the loosest-deadline resident, provided the victim
+    is at least ``margin`` rounds looser and under its eviction cap.
+    Residents without a deadline count as infinitely loose (batch
+    traffic yields to SLO traffic)."""
+
+    name = "deadline"
+
+    @property
+    def enabled(self) -> bool:
+        return True
+
+    @staticmethod
+    def _loose(r: Request) -> Tuple[float, int]:
+        d = r.deadline if r.deadline is not None else math.inf
+        return (d, -r.priority)
+
+    def select_victim(self, candidate: Request,
+                      residents: Sequence[Tuple[int, Request]],
+                      now_round: int) -> Optional[int]:
+        if candidate.deadline is None:
+            return None          # no SLO to defend — wait in the queue
+        best = None              # (slot, request) of the loosest victim
+        for slot, r in residents:
+            if r.evictions >= self.max_evictions:
+                continue
+            if best is None or self._loose(r) > self._loose(best[1]):
+                best = (slot, r)
+        if best is None:
+            return None
+        loose = (best[1].deadline if best[1].deadline is not None
+                 else math.inf)
+        if loose <= candidate.deadline + self.margin:
+            return None          # not meaningfully looser — don't churn
+        return best[0]
+
+
 # ===================================================== composed policy
 def _default_speculation() -> SpeculationPolicy:
     return SpeculationPolicy()
@@ -356,6 +494,11 @@ class ServingPolicy:
     commit: CommitPolicy = dataclasses.field(default_factory=CohortCommit)
     speculation: SpeculationPolicy = dataclasses.field(
         default_factory=_default_speculation)
+    # overload response: preemption (victim selection for deferred
+    # tight-deadline candidates) and its composed shed policy.  The
+    # default never preempts and never sheds.
+    preemption: PreemptionPolicy = dataclasses.field(
+        default_factory=PreemptionPolicy)
 
 
 # ====================================================== unified config
@@ -363,6 +506,10 @@ ADMISSION_POLICIES = {"fifo": FifoAdmission, "priority": PriorityAdmission,
                       "deadline": DeadlineAdmission,
                       "wedf": WeightedEdfAdmission}
 COMMIT_POLICIES = {"cohort": CohortCommit, "eager": EagerCommit}
+PREEMPT_POLICIES = {"none": PreemptionPolicy,
+                    "deadline": DeadlinePreemption}
+SHED_POLICIES = {"none": ShedPolicy, "expired": ExpiredShed,
+                 "queue": QueueDepthShed}
 
 
 @dataclasses.dataclass
@@ -374,11 +521,12 @@ class ServingConfig:
     serves sampled decoding, each request's stream keyed from ``seed``
     and its admission ordinal.  ``prefill_chunk`` > 0 (a multiple of 8)
     serves chunked refill prefill, its pipelines landing under the
-    ``commit`` policy.  ``preempt`` and ``shed`` away from their
-    defaults name the JAX engine's overload path, which is not ported
-    yet, as does ``shed_queue_depth`` (it bounds only the "queue" shed
-    policy); the engine raises ``NotImplementedError`` for any of them
-    (``_unported``)."""
+    ``commit`` policy.  ``preempt="deadline"`` (superstep mode only)
+    lets a deferred tight-deadline arrival evict the loosest resident
+    lane, which is spilled and restored mid-stream; ``shed`` names the
+    load-shedding policy ("expired" drops queued requests past their
+    round-unit deadline, "queue" bounds the arrived queue at
+    ``shed_queue_depth``, loosest first)."""
 
     # ---- engine geometry / decode
     gamma: int = 3
@@ -418,7 +566,7 @@ class ServingConfig:
     # ---- speculation runtime control (0 = gate only, never park)
     spec_park_patience: int = 0
     spec_probe_interval: int = 8
-    # ---- unported: overload response (preemption, load shedding)
+    # ---- overload response (superstep engine only; "none" = never)
     preempt: str = "none"              # none | deadline
     shed: str = "none"                 # none | expired | queue
     shed_queue_depth: int = 64
@@ -436,10 +584,14 @@ class ServingConfig:
         adm_cls = ADMISSION_POLICIES[self.admission]
         adm = (adm_cls() if adm_cls is FifoAdmission
                else adm_cls(lookahead=self.admission_lookahead))
+        shed_cls = SHED_POLICIES[self.shed]
+        shed = (shed_cls(depth=self.shed_queue_depth)
+                if shed_cls is QueueDepthShed else shed_cls())
         return ServingPolicy(
             admission=adm,
             commit=COMMIT_POLICIES[self.commit](),
             speculation=SpeculationPolicy(
                 drafter, park_patience=self.spec_park_patience,
                 probe_interval=self.spec_probe_interval,
-                tree_width=self.tree_width))
+                tree_width=self.tree_width),
+            preemption=PREEMPT_POLICIES[self.preempt](shed=shed))

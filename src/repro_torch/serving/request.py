@@ -50,8 +50,17 @@ class Request:
     # engine-assigned sampling-stream id (admission ordinal): the
     # per-request PRNG fold-in key, identical for a given stream across
     # every scheduling policy — what makes sampled decoding
-    # scheduling-invariant
+    # scheduling-invariant.  Preemption spills and restores the sid (and
+    # the per-lane step counter), so a restored request keeps drawing
+    # from the same PRNG stream
     sid: Optional[int] = None
+    # ---- overload accounting (preemption / load shedding)
+    # times this request was preempted off a lane into the SpillStore
+    evictions: int = 0
+    # set when a shed policy dropped the request instead of serving it;
+    # a shed request is finished with whatever it generated so far
+    # (usually nothing) and never re-admitted
+    shed: bool = False
 
     @property
     def done(self) -> bool:

@@ -155,6 +155,23 @@ class Scheduler:
         """True while any slot is occupied or any request is admissible."""
         return any(s is not None for s in self.slots) or self.has_pending()
 
+    def queue_view(self) -> List[Request]:
+        """The arrived queue entries (window topped up first) — the
+        read-only view shed policies rank over."""
+        self._fill()
+        return [r for r in self._queue if self._arrived(r)]
+
+    def peek_next(self) -> Optional[Request]:
+        """The request ``admit`` would pick next, without removing it —
+        the preemption tier compares its deadline against resident
+        lanes' to decide whether evicting one is worth it."""
+        cands = self._admissible()
+        if not cands:
+            return None
+        pick = cands[self.policy.select(
+            [self._queue[j] for j in cands], self._now())]
+        return self._queue[pick]
+
     # ------------------------------------------------------------ slots
     def retire(self, req: Request):
         """Route one finished request through the completion path (the
@@ -176,6 +193,32 @@ class Scheduler:
                 self.retire(r)
                 freed.append(r)
         return freed
+
+    def evict(self, slot: int) -> Request:
+        """Preemption: clear an *unfinished* resident from its slot
+        (the engine has already spilled its device state) and return
+        it.  The request stays live — it re-enters via the engine's
+        SpillStore restore path, never through the admission queue."""
+        req = self.slots[slot]
+        assert req is not None, f"evict of empty slot {slot}"
+        self.slots[slot] = None
+        if self.tracer.enabled:
+            self.tracer.instant("sched.evict", slot=slot, rid=req.rid)
+        return req
+
+    def shed(self, victims: List[Request]):
+        """Load shedding: drop queued requests (already finished/marked
+        by the engine) from the pending queue and route them through
+        the completion path."""
+        ids = {id(r) for r in victims}
+        if not ids:
+            return
+        self._queue = deque(r for r in self._queue if id(r) not in ids)
+        for r in victims:
+            self.retire(r)
+        if self.tracer.enabled:
+            self.tracer.instant("sched.shed", n=len(victims),
+                                rids=[r.rid for r in victims])
 
     def admit(self) -> List[Tuple[int, Request]]:
         """Fill free slots from the pending queue (admission order per

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, and the serving
-engine refuses to fall back to the CPU on its own.  The engine refuses
-the configurations outside the ported slices and serves the rest:
-sampled decoding (``greedy=False``, ``seed``) is served."""
+engine refuses to fall back to the CPU on its own.  Configurations once
+refused serve: sampled decoding (``greedy=False``, ``seed``), chunked
+refill prefill and the overload response (``preempt``, ``shed``,
+``shed_queue_depth``)."""
 import ast
 import pathlib
 
@@ -113,34 +114,43 @@ def test_engine_unported_paths_raise(kw, item):
     ("ServingConfig", dict(shed="expired")),
     ("ServingConfig", dict(shed_queue_depth=9)),
     ("ServingConfig", dict(seed=5)),
-    ("ServingPolicy", dict(preemption=object())),
+    ("ServingPolicy", dict(preemption="deadline")),
 ])
 def test_overload_and_paging_knobs_are_not_accepted(cls, kw):
-    """Preemption and shedding have no path in the port yet.  Their
-    ``ServingConfig`` knobs exist with JAX's defaults, and an engine
-    refuses any other value, naming the ROADMAP item, rather than ignore
-    it; the policy slot does not exist.  ``seed``, refused until
-    sampling was ported, now reaches the engine's base key."""
-    from repro_torch.serving import policy
-    if cls == "ServingPolicy":
-        with pytest.raises(TypeError):
-            policy.ServingPolicy(**kw)
-        return
+    """Knobs once refused here are served.  Preemption and shedding
+    (ROADMAP queue 1 item 6): each ``ServingConfig`` knob reaches the
+    engine's policy (``preempt`` its ``PreemptionPolicy``, ``shed`` and
+    ``shed_queue_depth`` the composed ``ShedPolicy``), and the engine
+    serves; ``ServingPolicy(preemption=...)`` builds, and an engine runs
+    under it.  ``seed`` (item 4) reaches the engine's base key."""
     from repro_torch.configs import get
     from repro_torch.core import eagle
     from repro_torch.models import transformer as T
+    from repro_torch.serving import policy
     from repro_torch.serving.engine import ServingEngine
     cfg = get("tide-tiny")
     dcfg = eagle.draft_config(cfg)
     params = T.init(cfg, 0, device="cpu")
     dparams = eagle.draft_init(dcfg, 1, device="cpu")
-    if "seed" in kw:
-        _serves(ServingEngine(cfg, params, dcfg, dparams, device="cpu",
-                              config=policy.ServingConfig(**kw)), kw)
+    if cls == "ServingPolicy":
+        pol = policy.ServingPolicy(preemption=policy.DeadlinePreemption(
+            shed=policy.ExpiredShed()))
+        assert pol.preemption.enabled and pol.preemption.shed.name == \
+            "expired"
+        eng = ServingEngine(cfg, params, dcfg, dparams, device="cpu",
+                            policy=pol)
+        assert eng.policy.preemption is pol.preemption
+        _serves(eng, {})
         return
-    with pytest.raises(NotImplementedError, match="item 6: overload"):
-        ServingEngine(cfg, params, dcfg, dparams, device="cpu",
-                      config=policy.ServingConfig(**kw))
+    config = policy.ServingConfig(**kw)
+    eng = ServingEngine(cfg, params, dcfg, dparams, device="cpu",
+                        config=config)
+    pre = eng.policy.preemption
+    assert pre.name == config.preempt and pre.shed.name == config.shed
+    assert getattr(pre.shed, "depth", config.shed_queue_depth) == \
+        config.shed_queue_depth
+    _serves(eng, kw)
+    assert eng.stats.preemptions == eng.stats.shed_requests == 0
 
 
 def _serves(eng, kw):

@@ -136,11 +136,13 @@ def test_config_from_args_matches_jax(argv):
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_serve_refusals_name_their_item(argv, item, monkeypatch):
     """Refused before any weight is made (``T.init`` would raise).  The
-    flags of items 4 and 5, refused until sampling and chunked refill
-    prefill were ported, serve: the engine takes ``--sample`` as
-    ``greedy=False``, ``--seed`` as its seed, ``--prefill-chunk`` as its
-    chunk width and ``--commit eager`` as its commit policy."""
-    if item in ("item 4", "item 5"):
+    flags of items 4, 5 and 6, refused until sampling, chunked refill
+    prefill and the overload response were ported, serve: the engine
+    takes ``--sample`` as ``greedy=False``, ``--seed`` as its seed,
+    ``--prefill-chunk`` as its chunk width, ``--commit eager`` as its
+    commit policy, ``--preempt`` as its preemption policy and ``--shed``
+    and ``--shed-queue-depth`` as the shed policy it composes."""
+    if item in ("item 4", "item 5", "item 6"):
         args = serve.build_parser().parse_args(SERVE_ARGV + argv)
         sys_, done = serve.main(SERVE_ARGV + argv, device="cpu")
         eng = sys_.engine
@@ -149,6 +151,10 @@ def test_serve_refusals_name_their_item(argv, item, monkeypatch):
         assert eng.prefill_chunk == args.prefill_chunk
         assert eng.policy.commit.name == args.commit
         assert (eng.stats.prefill_chunks > 0) == (args.prefill_chunk > 0)
+        pre = eng.policy.preemption
+        assert pre.name == args.preempt and pre.shed.name == args.shed
+        assert getattr(pre.shed, "depth", args.shed_queue_depth) == \
+            args.shed_queue_depth
         assert len(done) == 8 and all(len(r.generated) == 32 for r in done)
         return
 

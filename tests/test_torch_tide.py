@@ -630,16 +630,23 @@ def test_requests_from_trace(tiny):
         "shed_queue_depth", "sampling_seed", "chunked_eager"])
 def test_tide_unported_configs_raise(tiny, kw, item):
     """Each unported configuration raises naming its item; those of
-    items 4 and 5 (sampled decoding, chunked refill prefill and its eager
-    commit), once refused here, are served: the system's knobs reach the
-    engine, and a wave reaches its budgets."""
-    if item in ("item 4", "item 5"):
+    items 4, 5 and 6 (sampled decoding, chunked refill prefill and its
+    eager commit, preemption and load shedding), once refused here, are
+    served: the system's knobs reach the engine, and a wave reaches its
+    budgets."""
+    if item in ("item 4", "item 5", "item 6"):
         sys_ = _port_system(tiny, **kw)
         eng = sys_.engine
         assert eng.greedy is kw.get("greedy", True)
         assert eng.config.seed == kw.get("seed", 0)
         assert eng.prefill_chunk == kw.get("prefill_chunk", 0)
         assert eng.policy.commit.name == kw.get("commit", "cohort")
+        pre = eng.policy.preemption
+        assert pre.name == kw.get("preempt", "none")
+        assert pre.shed.name == kw.get("shed", "none")
+        assert eng.config.shed_queue_depth == kw.get("shed_queue_depth", 64)
+        if pre.shed.name == "queue":
+            assert pre.shed.depth == kw["shed_queue_depth"]
         done = sys_.run(iter(tiny["waves"][:1]), max_new_tokens=8)
         assert [len(r.generated) for r in done] == [8, 8]
         assert (eng.stats.prefill_chunks > 0) == bool(eng.prefill_chunk)
