@@ -293,8 +293,40 @@ Phases, one JSON line each:
            inside a stream, re-seeds equal to deploys, two backward
            launches a step, and the thread gone after close() (a second
            close() a no-op).
+  fleet    the fleet (src/repro_torch/fleet) on the same weights and
+           untrained draft, three runs.  (a) remote_sync: the tide
+           phase's TideConfig with fleet=FleetConfig(trainer_endpoint=
+           "spawn"): the trainer in a process of its own on the card
+           (python -m repro_torch.fleet.trainer_main), its two streams
+           must give the tide phase's streams, cycle count, deploy
+           rounds and second-stream mean accepted length, with no
+           trainer failure.  (b) remote_async: the tide_async
+           configuration with a spawned trainer; streams of the 16
+           requests, then of the first TIDE_STREAM2, until a deploy is
+           picked up; each superstep timed on the serving stream and
+           set against the trainer's cycles (their ends on the host's
+           monotonic clock, less their seconds); then kill_trainer() and
+           a stream of TIDE_STREAM2 requests: it must finish within
+           FLEET_STREAM_S on the last deployed draft with the serve's
+           streams and one failure.  (c) replicas: ServingFleet with
+           FleetConfig(replicas=2) and the in-process sync trainer on
+           the 16 requests, newest first (see _fleet_replicas): every
+           stream equal to the serve's, both replicas used, a cycle, a
+           deploy that reaches both replicas through the bus, both
+           engines on the params object, peak memory within
+           FLEET_PEAK_GB of the tide phase's.  (a) and (b) print the
+           spawn-to-ready seconds, the INIT frame's and each DRAFT
+           frame's bytes and seconds on both sides (encode and send in
+           the sender, decode and copy in the receiver), both processes'
+           peak RSS (the serving process's over the whole run) and the
+           trainer's device peak; (b) its supersteps during a remote
+           cycle, during a DRAFT's transfer (the trainer's encode to the
+           serving side's copy) and neither, beside tide_async's
+           in-process figures.
+           The verify and prefill kernels launch in every run.
   profile  torch.profiler over a short serve (8 requests of prompt 256,
-           PROFILE_NEW new tokens: a prologue and one superstep) on the
+           PROFILE_NEW new tokens: a prologue and one superstep of 2
+           decoding rounds; each line carries its seconds) on the
            dense engine right
            after its serve, then on the half-pool paged engine, each
            tree engine and the W = 4 paged tree engine, each right after
@@ -304,8 +336,8 @@ Phases, one JSON line each:
            block the host more than the chain.  Each engine is freed
            before the next is built.
 
-Then a ``total`` line with the run's seconds and the overload_serve
-and tide phases' seconds, and the kernel table
+Then a ``total`` line with the run's seconds and the overload_serve,
+tide and fleet phases' and each profile's seconds, and the kernel table
 (``{"kernels": [...]}``: eleven rows, each with its launch count from
 the main-path serve (for flash_attention_bwd, the train phase; for the
 sampling kernels, the dense sampled serve) that runs it, the launch
@@ -1240,11 +1272,16 @@ def _linear_rows_row(g):
 # the sampling kernels' operation counts an element, for their bound: the
 # threefry hash is 80 32-bit integer operations (4 key-schedule adds and
 # xors, 20 rounds of add, rotate and xor, 5 injections of 3 adds); the
-# draw adds ~10 (the uniform's shift, or, subtract and clamp, two logf
-# counted as one each, the add and the compare).  Integer and float32
-# work both run at the card's non-tensor 32-bit rate (67 T/s).
-HASH_OPS, DRAW_OPS = 80, 90
-INT32_OPS_PER_S = 67e12
+# draw adds ~10 float32 operations (the uniform's shift, or, subtract and
+# clamp, two logf counted as one each, the add and the compare).  An H100
+# SM issues 64 32-bit integer operations a clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0): 132
+# SMs x 64 x 1.98 GHz = 16.7 T/s; float32 runs at the card's non-tensor
+# rate (67 T/s).  The two kinds issue side by side, so the operations'
+# bound is the larger of the two times.
+HASH_OPS, DRAW_F32_OPS = 80, 10
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+F32_OPS_PER_S = 67e12
 SAMPLE_V = 151552               # glm4-9b's vocabulary
 LEVIATHAN_LANES = 4000
 # the Leviathan check's 8 live tokens (spread over the vocabulary and its
@@ -1255,8 +1292,9 @@ LEVIATHAN_T = (0.5, 2.0, -1.0, 0.0, 1.0, -2.0, 0.3, 0.7)
 LEVIATHAN_D = (2.0, -1.0, 0.5, 1.5, -0.5, 0.0, 1.0, -2.0)
 
 
-def _sample_bound(nbytes: float, ops: float):
-    mem, op = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+def _sample_bound(nbytes: float, int_ops: float, f32_ops: float = 0.0):
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    op = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
     return (mem, "bytes") if mem >= op else (op, "operations")
 
 
@@ -1321,7 +1359,8 @@ def _sample_rows(g):
         assert not (differ & ~ties).any(), \
             f"categorical_rows ({r}, {SAMPLE_V}) differs off a near-tie"
         b_ms, b_by = _sample_bound(4 * r * SAMPLE_V + 16 * r + 4 * r,
-                                   DRAW_OPS * r * SAMPLE_V)
+                                   HASH_OPS * r * SAMPLE_V,
+                                   DRAW_F32_OPS * r * SAMPLE_V)
         ccases.append(dict(
             R=r, V=SAMPLE_V, logits="peaked" if peaked else "random",
             tokens_differing=int(differ.sum()),
@@ -2972,6 +3011,40 @@ def _mean_accept(timeline) -> float:
         if timeline else float("nan")
 
 
+def _tide_config(async_train: bool = False, **kw):
+    """The tide phases' ``TideConfig`` on glm4-9b: batch 8, max_len 1024,
+    gamma 3, K 8, no Eq. 5 gate, windows of 63 signals, a cycle per 8;
+    sync with TIDE_SYNC_STEPS steps a cycle, or async with TIDE_STEPS and
+    reseed_window 16.  ``kw`` adds fields (the fleet phase's ``fleet``)."""
+    from repro_torch.core.tide import TideConfig
+    mode = (dict(train_min_steps=TIDE_STEPS, async_train=True,
+                 reseed_window=16) if async_train
+            else dict(train_min_steps=TIDE_SYNC_STEPS))
+    return TideConfig(gamma=GLM["GAMMA"], batch_size=8, max_len=1024,
+                      superstep_rounds=8, adaptive_spec=False,
+                      signal_window=GLM["TRAIN_WINDOW"], n_threshold=8,
+                      train_epochs=2, seed=0, **mode, **kw)
+
+
+def _tide_streams(system):
+    """The tide phases' two streams on ``system``: the 16 requests, then
+    the first TIDE_STREAM2, each to its budget, the device synchronized
+    after each.  Returns (streams, walls, timeline marks)."""
+    eng = system.engine
+    streams, walls, marks = [], [], []
+    for n in (16, TIDE_STREAM2):
+        reqs = _serve_requests(eng.cfg.vocab_size)[:n]
+        marks.append(len(eng.stats.timeline))
+        t0 = time.perf_counter()
+        system.run_stream(iter(reqs))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert all(r.finish_t is not None and len(r.generated) == 64
+                   for r in reqs), "a request did not finish"
+        streams.append([list(r.generated) for r in reqs])
+    return streams, walls, marks
+
+
 def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     """The synchronous adaptation loop on the card: ``TideSystem`` in sync
     mode on the serve phase's weights and untrained draft serves the 16
@@ -2985,12 +3058,9 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
     a step.  Acceptance inside the first stream is reported only."""
     import gc
 
-    from repro_torch.core.tide import TideConfig, TideSystem
+    from repro_torch.core.tide import TideSystem
     from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
-    tc = TideConfig(gamma=GLM["GAMMA"], batch_size=8, max_len=1024,
-                    superstep_rounds=8, adaptive_spec=False,
-                    signal_window=GLM["TRAIN_WINDOW"], n_threshold=8,
-                    train_epochs=2, train_min_steps=TIDE_SYNC_STEPS, seed=0)
+    tc = _tide_config()
     system = TideSystem(cfg, params, tc, dparams=dparams, device="cuda")
     eng = system.engine
     fns = dict(_kernel_fns(), flash_attention_bwd=flash_attention_bwd)
@@ -3019,17 +3089,7 @@ def phase_tide(cfg, params, dcfg, dparams, dense, dense_streams):
             fn.tree_launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    streams, walls, marks = [], [], []
-    for n in (16, TIDE_STREAM2):
-        reqs = _serve_requests(cfg.vocab_size)[:n]
-        marks.append(len(eng.stats.timeline))
-        t0 = time.perf_counter()
-        system.run_stream(iter(reqs))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        assert all(r.finish_t is not None and len(r.generated) == 64
-                   for r in reqs), "a request did not finish"
-        streams.append([list(r.generated) for r in reqs])
+    streams, walls, marks = _tide_streams(system)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {name: fn.launches for name, fn in fns.items()}
     timeline = list(eng.stats.timeline)
@@ -3240,14 +3300,10 @@ def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
     import gc
     import threading
 
-    from repro_torch.core.tide import TideConfig, TideSystem
+    from repro_torch.core.tide import TideSystem
     from repro_torch.core.transport import pick_training_device
     from repro_torch.kernels.flash_attn.ops import flash_attention_bwd
-    tc = TideConfig(gamma=GLM["GAMMA"], batch_size=8, max_len=1024,
-                    superstep_rounds=8, adaptive_spec=False,
-                    signal_window=GLM["TRAIN_WINDOW"], n_threshold=8,
-                    train_epochs=2, train_min_steps=TIDE_STEPS, seed=0,
-                    async_train=True, reseed_window=16)
+    tc = _tide_config(async_train=True)
     fns = dict(_kernel_fns(), flash_attention_bwd=flash_attention_bwd)
     for fn in fns.values():
         fn.launches = 0
@@ -3394,6 +3450,332 @@ def phase_tide_async(cfg, params, dcfg, dparams, dense, dense_streams,
     assert row["reseeds"] == row["deploys_picked"] == len(deploys), row
     assert all(e["flash_attention_bwd"] == 2 * e["steps"] for e in events), \
         events
+    return row
+
+
+# --------------------------------------------------------------- fleet
+FLEET_KILL_WAIT_S = 30.0     # bound on noticing a killed trainer
+FLEET_STREAM_S = 120.0       # bound on the stream served after the kill
+FLEET_PEAK_GB = 4.0          # two replicas' peak above the tide phase's
+
+
+def _draft_frames(svc) -> list:
+    """Each DRAFT frame a ``RemoteTrainingService`` received: its bytes,
+    the trainer's encode and send seconds and the serving side's decode
+    and copy seconds (host clocks)."""
+    sent = [t for t in svc.wire_log["trainer"] if "wire_draft_bytes" in t]
+    return [{"seq": d["seq"], "bytes": d["bytes"],
+             "encode_s": t["wire_draft_encode_s"],
+             "send_s": t["wire_draft_send_s"],
+             "decode_s": d["decode_s"], "copy_s": d["copy_s"]}
+            for d, t in zip(svc.wire_log["drafts"], sent)]
+
+
+def _wire_row(svc) -> dict:
+    """A remote trainer's wire figures: spawn to ready, the INIT frame on
+    both sides, every DRAFT frame, both processes' peak RSS (the serving
+    process's over the whole run; the trainer's largest sample, taken
+    where it holds the most) and the trainer's device peak."""
+    from repro_torch.fleet.trainer_main import peak_rss_mb
+    log = svc.wire_log
+    trainer = [log.get("trainer_ready", {})] + log["trainer"]
+    return {"trainer_pid": log.get("trainer_pid"),
+            "spawn_to_ready_s": log.get("spawn_to_ready_s"),
+            "init": dict(log["init"], decode_s=trainer[0].get(
+                "wire_init_decode_s"), copy_s=trainer[0].get(
+                "wire_init_copy_s")),
+            "drafts": _draft_frames(svc),
+            "peak_rss_mb": {"serving": peak_rss_mb(), "trainer_sampled": max(
+                (t["wire_rss_mb"] for t in trainer
+                 if t.get("wire_rss_mb") is not None), default=None)},
+            "trainer_device_peak_gb": max(
+                (t.get("wire_device_peak_gb", 0.0) for t in trainer),
+                default=None),
+            "frames_sent": svc.frames_sent, "bytes_sent": svc.bytes_sent,
+            "frames_recv": svc.frames_recv, "bytes_recv": svc.bytes_recv}
+
+
+def _served_kernels(fns) -> dict:
+    """The serving process's launches since the counts were zeroed; the
+    verify and prefill kernels must have launched."""
+    launches = {name: fn.launches for name, fn in fns.items()}
+    assert launches["verify_attention"] > 0 \
+        and launches["flash_attention"] > 0, launches
+    return launches
+
+
+def _fleet_remote_sync(cfg, params, dparams, dense_streams, tide_row):
+    """(a) The tide phase's ``TideSystem`` with its trainer spawned in a
+    process of its own: the same two streams must give the tide phase's
+    streams, cycles, deploy rounds and second-stream accepted length."""
+    from repro_torch.core.tide import TideSystem
+    from repro_torch.fleet import FleetConfig
+    fns = _kernel_fns()
+    _zero_counts(fns)
+    t0 = time.perf_counter()
+    system = TideSystem(cfg, params, _tide_config(
+        fleet=FleetConfig(trainer_endpoint="spawn")), dparams=dparams,
+        device="cuda")
+    try:
+        built_s = time.perf_counter() - t0
+        eng, svc = system.engine, system.service
+        deploys = []
+        poll_deploy = eng._poll_deploy
+
+        def polled(source=None):
+            ver = poll_deploy(source)
+            if ver is not None:
+                deploys.append({"seq": ver.seq, "round": eng.stats.steps,
+                                "superstep": eng.stats.dispatches})
+            return ver
+
+        eng._poll_deploy = polled
+        streams, walls, marks = _tide_streams(system)
+    finally:
+        system.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    keys = ("eval_acc", "train_acc", "baseline", "deployed", "steps",
+            "engine_steps")
+    events = [{k: e[k] for k in keys + ("seconds",)} for e in system.events]
+    two = list(eng.stats.timeline)[marks[1]:]
+    row = {"phase": "fleet", "run": "remote_sync", "endpoint": "spawn",
+           "system_built_s": built_s, **_wire_row(svc),
+           "cycles": len(events), "events": events, "deploys": deploys,
+           "gate_version": system.gate.version,
+           "events_equal_tide": [
+               all(e[k] == f[k] for k in keys)
+               for e, f in zip(events, tide_row["events"])],
+           "stream_wall_s": walls,
+           "stream2_mean_accept_len": _mean_accept(two),
+           "tide": {k: tide_row[k] for k in (
+               "cycles", "deploys", "stream_wall_s",
+               "stream2_mean_accept_len", "max_memory_allocated_GB")},
+           "streams_equal_serve": [s == dense_streams[:len(s)]
+                                   for s in streams],
+           "launches": _served_kernels(fns), "summary": system.summary(),
+           "trainer_failures": svc.failures,
+           "trainer_last_error": svc.last_error,
+           "max_memory_allocated_GB": peak_gb, "nvidia_smi": smi()}
+    emit(row)
+    assert svc._proc.poll() is not None, "the trainer outlived close()"
+    assert row["trainer_failures"] == 0, row["trainer_last_error"]
+    assert all(row["streams_equal_serve"]), "a remote stream != the serve's"
+    assert row["cycles"] == tide_row["cycles"], \
+        f"cycles {row['cycles']} != the tide phase's {tide_row['cycles']}"
+    assert deploys == tide_row["deploys"], \
+        f"deploy rounds {deploys} != the tide phase's {tide_row['deploys']}"
+    assert row["stream2_mean_accept_len"] == \
+        tide_row["stream2_mean_accept_len"], row["stream2_mean_accept_len"]
+    return row
+
+
+def _overlapping(spans, windows) -> list:
+    return [any(s < b and e > a for a, b in windows) for s, e in spans]
+
+
+def _fleet_remote_async(cfg, params, dparams, dense_streams, async_row):
+    """(b) The tide_async configuration with a spawned trainer: streams of
+    the 16 requests (then of the first TIDE_STREAM2) until a deploy is
+    picked up; each superstep timed on the serving stream and set
+    against the trainer's cycles (their ends on the host's monotonic
+    clock, less their seconds).  Then the trainer is killed and a stream
+    of TIDE_STREAM2 requests served on the last deployed draft."""
+    from repro_torch.core.tide import TideSystem
+    from repro_torch.fleet import FleetConfig
+    fns = _kernel_fns()
+    _zero_counts(fns)
+    system = TideSystem(cfg, params, _tide_config(
+        async_train=True, fleet=FleetConfig(trainer_endpoint="spawn")),
+        dparams=dparams, device="cuda")
+    try:
+        eng, svc = system.engine, system.service
+        serving = torch.cuda.current_stream()
+        deploys, spans, streams, walls = [], [], [], []
+        poll_deploy, superstep = eng._poll_deploy, eng._superstep
+
+        def polled(source=None):
+            ver = poll_deploy(source)
+            if ver is not None:
+                deploys.append({"seq": ver.seq, "round": eng.stats.steps,
+                                "superstep": eng.stats.dispatches,
+                                "stream": len(walls) + 1})
+            return ver
+
+        def timed(*a, **kw):
+            serving.synchronize()
+            s = time.perf_counter()
+            out = superstep(*a, **kw)
+            serving.synchronize()
+            spans.append((s, time.perf_counter()))
+            return out
+
+        eng._poll_deploy, eng._superstep = polled, timed
+
+        def stream(n):
+            reqs = _serve_requests(cfg.vocab_size)[:n]
+            serving.synchronize()
+            t0 = time.perf_counter()
+            system.run_stream(iter(reqs))
+            serving.synchronize()
+            walls.append(time.perf_counter() - t0)
+            assert all(r.finish_t is not None and len(r.generated) == 64
+                       for r in reqs), "a request did not finish"
+            streams.append([list(r.generated) for r in reqs])
+
+        while not streams or (not deploys and len(streams) < 3):
+            stream(TIDE_STREAM2 if streams else 16)
+        cycles = list(zip(svc.events, svc.wire_log["trainer"]))
+        windows = [(t["wire_cycle_end_t"] - e["seconds"],
+                    t["wire_cycle_end_t"]) for e, t in cycles]
+        # a DRAFT from the trainer's encode to the serving side's copy
+        sent = [t for _, t in cycles if "wire_draft_bytes" in t]
+        transfers = [(t["wire_cycle_end_t"], d["t_end"])
+                     for d, t in zip(svc.wire_log["drafts"], sent)]
+        during = _overlapping(spans, windows)
+        moving = _overlapping(spans, transfers)
+        ms = [(e - s) * 1e3 for s, e in spans]
+        before = {"cycles": len(cycles), "deploys": len(deploys),
+                  "supersteps": len(spans)}
+        t0 = time.perf_counter()
+        svc.kill_trainer()
+        while svc.running and time.perf_counter() - t0 < FLEET_KILL_WAIT_S:
+            time.sleep(0.05)
+        dead_s = time.perf_counter() - t0
+        # the receiver has handled every frame the trainer sent
+        last = svc.poll()
+        stream(TIDE_STREAM2)
+        served_last = (last is not None and eng.dparams is last.dparams
+                       and eng._deploy_seq == last.seq)
+        running, failures = svc.running, svc.failures
+        summary = system.summary()
+    finally:
+        t0 = time.perf_counter()
+        system.close()
+        close_s = time.perf_counter() - t0
+
+    def mean(xs):
+        return statistics.mean(xs) if xs else None
+    d_ms = [m for m, d in zip(ms, during) if d]
+    o_ms = [m for m, d in zip(ms, during) if not d]
+    t_ms = [m for m, d, t in zip(ms, during, moving) if t and not d]
+    i_ms = [m for m, d, t in zip(ms, during, moving) if not (t or d)]
+    row = {"phase": "fleet", "run": "remote_async", "endpoint": "spawn",
+           **_wire_row(svc),
+           "cycles": before["cycles"], "events": [
+               {k: e[k] for k in ("eval_acc", "train_acc", "baseline",
+                                  "deployed", "steps", "seconds",
+                                  "engine_steps")} for e, _ in cycles],
+           "deploys": deploys, "reseeds": summary["reseeds"],
+           "supersteps_during_cycle": len(d_ms),
+           "supersteps_outside_cycle": len(o_ms),
+           "superstep_ms_mean_during_cycle": mean(d_ms),
+           "superstep_ms_mean_outside_cycle": mean(o_ms),
+           "during_over_outside": (mean(d_ms) / mean(o_ms)
+                                   if d_ms and o_ms else None),
+           "supersteps_during_draft_transfer": len(t_ms),
+           "superstep_ms_mean_during_draft_transfer": mean(t_ms),
+           "supersteps_idle": len(i_ms), "superstep_ms_mean_idle": mean(i_ms),
+           "in_process": {k: async_row[k] for k in (
+               "supersteps_during_cycle", "supersteps_outside_cycle",
+               "superstep_ms_mean_during_cycle",
+               "superstep_ms_mean_outside_cycle", "stream_wall_s")},
+           "stream_wall_s": walls,
+           "streams_equal_serve": [s == dense_streams[:len(s)]
+                                   for s in streams],
+           "kill": {"dead_after_s": dead_s, "running": running,
+                    "failures": failures, "last_seq": last and last.seq,
+                    "served_last_draft": served_last,
+                    "stream_wall_s": walls[-1], "close_s": close_s,
+                    "last_error": svc.last_error},
+           "launches": _served_kernels(fns), "summary": summary,
+           "max_memory_allocated_GB": torch.cuda.max_memory_allocated()
+           / 1e9, "nvidia_smi": smi()}
+    emit(row)
+    assert svc._proc.poll() is not None, "the trainer outlived close()"
+    assert before["deploys"] >= 1, "no deploy was picked up"
+    assert all(row["streams_equal_serve"]), "a remote stream != the serve's"
+    assert not running and failures == 1, (running, failures)
+    assert served_last, "the stream after the kill left the last draft"
+    assert walls[-1] < FLEET_STREAM_S, walls
+    assert row["reseeds"] == summary["deploys"] == len(deploys), row
+    return row
+
+
+def _fleet_replicas(cfg, params, dparams, dense_streams, tide_row):
+    """(c) ``ServingFleet`` of two replicas over one params object with
+    the in-process sync trainer, on the 16 requests, newest first: every
+    stream equal to the serve's, both replicas used, a cycle, a deploy
+    that reaches both replicas through the bus, and no second target in
+    memory.
+
+    Why newest first: on random weights a cycle's draft learns only what
+    it saw, so a cycle deploys when its eval window (the last of its 8,
+    the last lane's) repeats a training window: the tide phases deploy
+    because their first cycle evaluates on request 7, which shares its
+    prompt with 1, 3 and 5.  In arrival order the router gives replica 0
+    requests 0, 3, 4, 6, 8, 10, 12, 14 and replica 1 1, 2, 5, 7, 9, 11,
+    13, 15, and neither cycle evaluates on a repeat (both read eval 0.0
+    on the card); newest first, replica 0 serves 15, 13, 10, 9, 7, 5, 3,
+    1, so its cycle evaluates on request 1, and replica 1 picks its
+    deploy up."""
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.fleet.router import ServingFleet
+    fns = _kernel_fns()
+    _zero_counts(fns)
+    fleet = ServingFleet(cfg, params, _tide_config(
+        fleet=FleetConfig(replicas=2)), dparams=dparams, device="cuda")
+    try:
+        reqs = _serve_requests(cfg.vocab_size)
+        t0 = time.perf_counter()
+        fleet.serve(reqs[::-1])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        assert all(r.finish_t is not None and len(r.generated) == 64
+                   for r in reqs), "a request did not finish"
+    finally:
+        fleet.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = fleet.summary()
+    one_params = all(e.params is params for e in fleet.engines)
+    row = {"phase": "fleet", "run": "replicas", "replicas": fleet.n,
+           "wall_s": wall_s, "summary": summary,
+           "same_params_object": one_params,
+           "streams_equal_serve": [list(r.generated) for r in reqs]
+           == dense_streams,
+           "events": [{k: e[k] for k in ("eval_acc", "deployed", "steps",
+                                         "seconds", "engine_steps")}
+                      for e in fleet.events],
+           "launches": _served_kernels(fns),
+           "trainer_failures": fleet.service.failures,
+           "max_memory_allocated_GB": peak_gb,
+           "tide_max_memory_allocated_GB":
+               tide_row["max_memory_allocated_GB"], "nvidia_smi": smi()}
+    emit(row)
+    assert row["streams_equal_serve"], "a fleet stream != the serve's"
+    assert one_params, "a replica holds its own params"
+    assert all(n > 0 for n in summary["router_assigned"]), summary
+    assert summary["train_cycles"] >= 1 and summary["deployed"] >= 1 \
+        and summary["bus"]["published"] >= 1, summary
+    assert all(sub["delivered_seq"] >= 1 for sub in
+               summary["bus"]["subscribers"].values()), summary["bus"]
+    assert row["trainer_failures"] == 0
+    assert peak_gb <= tide_row["max_memory_allocated_GB"] + FLEET_PEAK_GB, \
+        f"two replicas peak at {peak_gb} GB"
+    return row
+
+
+def phase_fleet(cfg, params, dcfg, dparams, dense_streams, tide_row,
+                async_row):
+    """The fleet on glm4-9b: (a) a spawned trainer in sync mode, (b) in
+    async mode then killed, (c) two replicas behind the in-process
+    trainer.  Each run frees what it made before the next."""
+    import gc
+    for run in (partial(_fleet_remote_sync, tide_row=tide_row),
+                partial(_fleet_remote_async, async_row=async_row),
+                partial(_fleet_replicas, tide_row=tide_row)):
+        run(cfg, params, dparams, dense_streams)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _train_step_split(trainer, dparams, batches, steps: int = 5) -> dict:
@@ -3494,9 +3876,13 @@ def _device_classes(events, per: float = 1.0) -> dict:
 
 
 # the profile phase's new tokens a request: the first token and one
-# superstep of 8 rounds (17, two supersteps, until the sampled phases
-# needed the time)
-PROFILE_NEW = 9
+# superstep, of which 2 rounds decode (17, two supersteps, until the
+# sampled phases needed the time; 9, 8 rounds, until the fleet phase
+# did: a profile's seconds follow its launches)
+PROFILE_NEW = 3
+# each profile's seconds (the serve, the profiler's processing, the
+# phase's reading), for the total line
+PROFILE_S = {}
 
 
 def phase_profile(eng, which="dense"):
@@ -3505,6 +3891,7 @@ def phase_profile(eng, which="dense"):
     one prologue prefill and one superstep), with the count of
     host-blocking CUDA calls.  Returns that count."""
     from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
     reqs = _requests(np.random.default_rng(6), 8, 256, 256, PROFILE_NEW,
                      eng.cfg.vocab_size)
     torch.cuda.synchronize()
@@ -3518,11 +3905,14 @@ def phase_profile(eng, which="dense"):
     events = prof.key_averages()
     dev = _device_classes(events)
     blocking = {e.key: e.count for e in events if _blocking(e.key)}
+    PROFILE_S[which] = round(time.perf_counter() - t_phase, 1)
     emit({"phase": "profile", "engine": which, "requests": len(reqs),
+          "new_tokens": PROFILE_NEW,
           "host_syncs": eng.host_syncs - syncs0, "blocking_calls": blocking,
           "wall_ms": wall_ms, "device_busy_ms": dev["device_busy_ms"],
           "idle_share": 1.0 - dev["device_busy_ms"] / wall_ms,
-          "classes": dev["classes"], "top": dev["top"]})
+          "classes": dev["classes"], "top": dev["top"],
+          "seconds": PROFILE_S[which]})
     return blocking
 
 
@@ -3571,12 +3961,16 @@ def main():
     tide_row = phase_tide(*model, dense, dense_streams)
     tide_s = time.perf_counter() - t0
     phase_reseed(*model)
-    phase_tide_async(*model, dense, dense_streams, tide_row)
+    async_row = phase_tide_async(*model, dense, dense_streams, tide_row)
+    t0 = time.perf_counter()
+    phase_fleet(*model, dense_streams, tide_row, async_row)
+    fleet_s = time.perf_counter() - t0
     del model
     emit({"phase": "total", "seconds": round(time.perf_counter() - T_START,
                                              1),
           "overload_serve_s": round(overload_s, 1),
-          "tide_s": round(tide_s, 1)})
+          "tide_s": round(tide_s, 1), "fleet_s": round(fleet_s, 1),
+          "profile_s": PROFILE_S})
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launch_phase_launches"] = launch.get(row["name"], 0)

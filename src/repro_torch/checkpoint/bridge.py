@@ -9,9 +9,15 @@ way in.  Optimizer state (``training/optimizer.py``, AdamW and
 Adafactor) and a trainer's flat dict of draft leaves cross the same way,
 under JAX's keys (``m/<leaf>``, ``<leaf>/vr``).  The port itself never
 reads JAX objects: callers hand it numpy arrays.
+
+A bf16 leaf is either widened to fp32 (``tree_to_numpy``, the
+checkpoint format) or kept as its 16-bit words, numpy's ``V2`` dtype
+(``host_array``, the fleet's wire format), which is what ``np.savez``
+writes for JAX's bf16 arrays; ``array_tensor`` reads either back.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -73,6 +79,39 @@ def tree_to(tree, device, non_blocking: bool = False) -> ParamTree:
     return ParamTree(unflatten({
         k: t.to(device, non_blocking=non_blocking)
         for k, t in flat(tree).items()}))
+
+
+# numpy's dtype for a bf16 word (what np.savez writes for JAX's bf16)
+BF16_WORD = np.dtype("V2")
+
+
+def host_array(x) -> np.ndarray:
+    """A leaf as a host numpy array, its dtype kept: a tensor is copied to
+    the host, a bf16 one as its 16-bit words (``BF16_WORD``)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_WORD)
+        return t.numpy()
+    return np.asarray(x)
+
+
+def array_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, dtype kept (``BF16_WORD``
+    as bf16).  The array may view a read-only buffer: a CPU tensor is a
+    copy, a CUDA tensor a host-to-device copy on the current stream."""
+    arr = np.asarray(arr)
+    bf16 = arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+    with warnings.catch_warnings():
+        # a read-only buffer: the tensor below never writes it
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(arr.view(np.int16) if bf16 else arr)
+    if bf16:
+        t = t.view(torch.bfloat16)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t.clone()
+    return t.to(device, non_blocking=True)
 
 
 def tree_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:

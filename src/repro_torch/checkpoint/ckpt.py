@@ -39,12 +39,10 @@ def save(path: str, tree, metadata: Optional[dict] = None):
 
 
 def _tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
-        # bf16 saved by a writer that knew the type: raw 16-bit words
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=like.device, dtype=like.dtype)
+    # bf16 saved by a writer that knew the type arrives as raw 16-bit
+    # words, which the bridge reads as bf16
+    return bridge.array_tensor(arr, "cpu").to(device=like.device,
+                                              dtype=like.dtype)
 
 
 def load(path: str, like) -> Any:

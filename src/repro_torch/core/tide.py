@@ -27,8 +27,12 @@ each deploy.  The training card is ``transport.pick_training_device()``
 channel places signals on it, and a draft trained there is copied back
 to the engine's card before it is published.  Every control decision
 (Algorithm 1's collection gating, deploy-if-improved) is the same in
-both modes.  The fleet (``TideConfig.fleet``) is ROADMAP queue 1 item 7
-and raises ``NotImplementedError``.
+both modes.  With ``TideConfig.fleet`` naming a ``trainer_endpoint``
+the training stack is ``fleet.remote.RemoteTrainingService``, a trainer
+in a process of its own behind the same ``poll``/``drain``/``reset``/
+``close`` surface (``"spawn"`` starts one on the system's device kind),
+so every mode above runs unchanged; the N-replica fleet is
+``fleet.router.ServingFleet``.
 
 Serving knobs live in one ``serving.policy.ServingConfig``
 (``TideConfig(serving=...)``); the flat ``TideConfig`` fields mirror it.
@@ -51,6 +55,7 @@ from repro_torch.core.adaptive import AdaptiveDrafter, LatencyProfile
 from repro_torch.core.controller import TrainingController
 from repro_torch.core.signals import SignalExtractor
 from repro_torch.core.transport import SignalChannel, pick_training_device
+from repro_torch.fleet import FleetConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import ObsConfig
 from repro_torch.obs.metrics import MetricsRegistry
@@ -111,8 +116,8 @@ class TideConfig:
     # ---- observability: not a ServingConfig knob; the engine takes the
     #      built tracer/recorder as collaborators
     obs: Optional[ObsConfig] = None
-    # ---- disaggregation: unported (ROADMAP queue 1 item 7)
-    fleet: Optional[object] = None
+    # ---- disaggregation (fleet.FleetConfig): replicas, trainer endpoint
+    fleet: Optional[FleetConfig] = None
     serving: Optional[ServingConfig] = None
 
     # knobs shared (by name) with ServingConfig: assembled into one
@@ -146,18 +151,10 @@ class TideConfig:
             setattr(self, f, getattr(self.serving, f))
 
 
-def _refuse(tide_cfg: TideConfig):
-    if tide_cfg.fleet is not None:
-        raise NotImplementedError(
-            "TideConfig(fleet=...) is not ported yet (ROADMAP queue 1 "
-            "item 7: fleet)")
-
-
 class TideSystem:
     def __init__(self, cfg: ModelConfig, params, tide_cfg: TideConfig,
                  profile: Optional[LatencyProfile] = None,
                  dparams=None, device=None):
-        _refuse(tide_cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tcfg = tide_cfg
@@ -175,36 +172,67 @@ class TideSystem:
         drafter = None
         if tide_cfg.adaptive_spec and profile is not None:
             drafter = AdaptiveDrafter(profile, gamma=tide_cfg.gamma)
-        # async mode trains on a card of its own where the host has one
-        train_device = (pick_training_device() if tide_cfg.async_train
-                        and self.device.type == "cuda" else None)
-        if train_device == self.device:
-            train_device = None
-        # the channel must be able to buffer at least one cycle's worth
-        # of windows, or training starves behind the drop-oldest bound
-        self.channel = SignalChannel(
-            capacity=max(tide_cfg.channel_capacity, tide_cfg.n_threshold),
-            device=train_device)
-        embed = params["embed"]
-        if train_device is not None:
-            embed = bridge.tree_to(embed, train_device)
-        self.trainer = DraftTrainer(cfg, self.dcfg, embed,
-                                    device=train_device or self.device)
-        self.gate = DraftDeployGate(dparams)
-        self.service = TrainingService(
-            self.trainer, self.gate, self.channel,
-            controller=self.controller,
-            selective=tide_cfg.selective_training,
-            n_threshold=n_threshold,
-            signal_window=tide_cfg.signal_window,
-            train_epochs=tide_cfg.train_epochs,
-            train_min_steps=tide_cfg.train_min_steps,
-            seed=tide_cfg.seed,
-            device=train_device,
-            publish_device=self.device if train_device is not None else None,
-            trainer_threads=tide_cfg.trainer_threads,
-            engine_steps_fn=lambda: self.engine.stats.steps,
-            tracer=self.tracer, registry=self.metrics)
+        # the training stack: in-process (a thread, on a card of its own
+        # where the host has one) or in a process of its own over the
+        # fleet wire; both expose the same poll/drain/reset/close surface
+        remote = (tide_cfg.fleet is not None
+                  and tide_cfg.fleet.trainer_endpoint is not None)
+        if remote:
+            from repro_torch.fleet.remote import RemoteTrainingService
+            self.service = RemoteTrainingService(
+                tide_cfg.fleet.trainer_endpoint,
+                tcfg=cfg, dcfg=self.dcfg,
+                embed_params=params["embed"], dparams0=dparams,
+                n_threshold=n_threshold,
+                signal_window=tide_cfg.signal_window,
+                train_epochs=tide_cfg.train_epochs,
+                train_min_steps=tide_cfg.train_min_steps,
+                seed=tide_cfg.seed, async_train=tide_cfg.async_train,
+                channel_capacity=max(tide_cfg.channel_capacity,
+                                     tide_cfg.n_threshold),
+                controller=self.controller,
+                selective=tide_cfg.selective_training,
+                engine_steps_fn=lambda: self.engine.stats.steps,
+                device=self.device,
+                tracer=self.tracer, registry=self.metrics)
+            self.channel = self.service.channel
+            self.trainer = None             # lives in the trainer process
+            self.gate = self.service.gate   # serving-side version mirror
+        else:
+            # async mode trains on a card of its own where the host has
+            # one
+            train_device = (pick_training_device() if tide_cfg.async_train
+                            and self.device.type == "cuda" else None)
+            if train_device == self.device:
+                train_device = None
+            # the channel must be able to buffer at least one cycle's
+            # worth of windows, or training starves behind the
+            # drop-oldest bound
+            self.channel = SignalChannel(
+                capacity=max(tide_cfg.channel_capacity,
+                             tide_cfg.n_threshold),
+                device=train_device)
+            embed = params["embed"]
+            if train_device is not None:
+                embed = bridge.tree_to(embed, train_device)
+            self.trainer = DraftTrainer(cfg, self.dcfg, embed,
+                                        device=train_device or self.device)
+            self.gate = DraftDeployGate(dparams)
+            self.service = TrainingService(
+                self.trainer, self.gate, self.channel,
+                controller=self.controller,
+                selective=tide_cfg.selective_training,
+                n_threshold=n_threshold,
+                signal_window=tide_cfg.signal_window,
+                train_epochs=tide_cfg.train_epochs,
+                train_min_steps=tide_cfg.train_min_steps,
+                seed=tide_cfg.seed,
+                device=train_device,
+                publish_device=(self.device if train_device is not None
+                                else None),
+                trainer_threads=tide_cfg.trainer_threads,
+                engine_steps_fn=lambda: self.engine.stats.steps,
+                tracer=self.tracer, registry=self.metrics)
         self.extractor = SignalExtractor(self.channel,
                                          window=tide_cfg.signal_window)
         self.events = self.service.events

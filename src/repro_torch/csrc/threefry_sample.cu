@@ -24,14 +24,14 @@
 // by (maxval - minval) = 1.0f are written with __fadd_rn/__fmul_rn so no
 // contraction changes a rounding.
 //
-// What bounds it on an H100: bytes for a draw (the logits are read once:
-// 4.85 MB at R 8, V 151 552, ~1.4 us at 3.35 TB/s); the hash is ~100
-// integer operations an element, ~0.12 G operations at R 8, well under
-// the card's integer rate.  The design: a grid of (chunks, R) blocks of
-// 256 threads, each thread a strided walk over its chunk keeping the best
-// (value, index), a warp-shuffle then shared-memory reduction to one
-// partial per block, and a second one-warp-per-row kernel over the
-// partials.  The wrapper picks the chunk count, so a row of 151 552
+// What bounds it on an H100: the hash's integer work.  The hash is ~80
+// 32-bit integer operations an element, ~97 M at R 8, V 151 552, and an
+// SM issues 64 of them a clock (~16.7 T/s on the card): ~5.8 us, above
+// the ~1.4 us of reading the logits once (4.85 MB at 3.35 TB/s).  The
+// design: a grid of (chunks, R) blocks of 256 threads, each thread a
+// strided walk over its chunk keeping the best (value, index), a
+// warp-shuffle then shared-memory reduction to one partial per block,
+// and a second one-warp-per-row kernel over the partials.  The wrapper picks the chunk count, so a row of 151 552
 // spreads over ~74 blocks and R 8 fills the 132 SMs.
 #include <cuda_runtime.h>
 #include <math.h>

@@ -6,7 +6,9 @@ The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc`` for
 is compiled to an object by its own ``nvcc`` process, all started
 together, then one link.  The library lands in ``build/repro_torch/`` at
 the repository root, named by a hash of the sources and flags, so an
-unchanged tree builds once.
+unchanged tree builds once.  The build holds a file lock there, so two
+processes (a server and the trainer it spawns) never build at once: the
+second waits and loads the first one's library.
 
 Run alone to build and print the seconds it took::
 
@@ -15,6 +17,7 @@ Run alone to build and print the seconds it took::
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -85,7 +88,18 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile (if needed) and return the path of the shared library."""
+    """Compile (if needed) and return the path of the shared library,
+    under the build directory's file lock."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build() -> Path:
     global BUILD_SECONDS
     sources = sorted(_CSRC.glob("*.cu"))
     tag = _digest()

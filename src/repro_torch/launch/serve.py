@@ -12,9 +12,12 @@ Usage:
 The flags, their names and defaults, are JAX's; ``build_parser`` and
 ``config_from_args`` are the one flag → ``ServingConfig`` mapping.  Where
 JAX feeds the Eq. 5 gate an analytic TPU roofline, the port measures
-T(n) and D0 on the serving device (``measure_profile``).  Refused, each
-naming its ROADMAP queue 1 item: ``--dryrun`` (9), ``--fleet-replicas``
-and ``--trainer-endpoint`` (7).  ``--sample`` serves per-request-keyed
+T(n) and D0 on the serving device (``measure_profile``).  Refused,
+naming its ROADMAP queue 1 item: ``--dryrun`` (9).  ``--trainer-endpoint
+spawn`` (or ``unix:``/``tcp:``) trains the draft in a process of its
+own, and ``--fleet-replicas N`` serves a Poisson trace over N
+data-parallel replicas behind one trainer (``serve_fleet``, JAX's
+``_main_fleet``; ``--fleet-route``).  ``--sample`` serves per-request-keyed
 sampled decoding from the engine base seed ``--seed``, JAX's threefry
 streams; ``--prefill-chunk C`` serves chunked refill prefill, its
 pipelines committing under ``--commit`` (cohort or eager); ``--preempt
@@ -141,14 +144,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trainer-threads", type=int, default=0,
                     help=">0: deprioritize the async trainer's host "
                          "thread at the OS scheduler")
-    # ---- disaggregation: not ported (item 7)
+    # ---- disaggregation (repro_torch/fleet)
     ap.add_argument("--fleet-replicas", type=int, default=0,
                     help=">0: a data-parallel fleet of N engine replicas "
-                         "(not ported: item 7)")
+                         "behind one trainer and a draft-version bus")
     ap.add_argument("--trainer-endpoint", default=None,
                     metavar="ENDPOINT",
-                    help="draft training out of process (not ported: "
-                         "item 7)")
+                    help="draft training out of process: 'spawn' starts "
+                         "a private trainer process; unix:/path or "
+                         "tcp:host:port connects to a running "
+                         "repro_torch.fleet.trainer_main")
     ap.add_argument("--fleet-route", choices=["least", "rr"],
                     default="least",
                     help="fleet request routing (with --fleet-replicas)")
@@ -201,14 +206,17 @@ def config_from_args(args):
 
 
 def fleet_config_from_args(args):
-    """None: the port serves one engine.  A fleet or an out-of-process
-    trainer (``--fleet-replicas``, ``--trainer-endpoint``) raises."""
-    if getattr(args, "fleet_replicas", 0) \
-            or getattr(args, "trainer_endpoint", None) is not None:
-        raise NotImplementedError(
-            "--fleet-replicas and --trainer-endpoint are not ported yet "
-            "(ROADMAP queue 1 item 7: fleet)")
-    return None
+    """The ``FleetConfig`` the disaggregation flags name (JAX's
+    mapping), or None when neither a fleet nor a trainer endpoint was
+    asked for."""
+    from repro_torch.fleet import FleetConfig
+
+    if not getattr(args, "fleet_replicas", 0) \
+            and getattr(args, "trainer_endpoint", None) is None:
+        return None
+    return FleetConfig(replicas=args.fleet_replicas,
+                       trainer_endpoint=args.trainer_endpoint,
+                       route=args.fleet_route)
 
 
 def serve_corpus(cfg):
@@ -349,6 +357,47 @@ def serve(args, cfg, params, profile, domains, *, device, dparams=None):
     return sys_, done, time.perf_counter() - t0
 
 
+def serve_fleet(args, cfg, params, profile, domains, *, device,
+                dparams=None):
+    """JAX's ``_main_fleet``: route a Poisson trace of ``--requests``
+    (half science, then half code) over ``--fleet-replicas`` replicas fed
+    by one trainer (in process, or at ``--trainer-endpoint``), drain the
+    trainer and close it.  Returns (fleet, completed requests, seconds of
+    wall time)."""
+    from repro_torch.data.workloads import Phase, arrival_trace
+    from repro_torch.fleet.router import ServingFleet
+    from repro_torch.serving.request import Request
+    n = args.requests
+    mx = max(args.max_new_tokens, 1)
+    trace = arrival_trace(
+        domains, n, mode="poisson", rate=16.0,
+        max_new_range=(min(8, mx), mx),
+        schedule=[Phase("science", n // 2), Phase("code", n - n // 2)],
+        seed=1)
+    reqs = [Request(prompt=ev.prompt, domain=ev.domain,
+                    max_new_tokens=ev.max_new_tokens, arrives_at=ev.t)
+            for ev in trace]
+    fleet = ServingFleet(cfg, params, tide_config(args), profile=profile,
+                         dparams=dparams, device=device)
+    t0 = time.perf_counter()
+    try:
+        done = fleet.serve(reqs)
+        fleet.service.drain()
+    finally:
+        fleet.close()
+    return fleet, done, time.perf_counter() - t0
+
+
+def report_fleet(fleet, wall_s: float):
+    """Print JAX's fleet summary.  Returns it."""
+    s = fleet.summary()
+    print(f"\n== fleet summary ({wall_s:.1f}s wall, "
+          f"{s['replicas']} replicas) ==")
+    for k, v in s.items():
+        print(f"  {k}: {v:.3f}" if isinstance(v, float) else f"  {k}: {v}")
+    return s
+
+
 def accept_trend(sys_):
     """Mean accepted length of the first and the last quarter of the
     engine's rounds (paper Fig. 5)."""
@@ -384,13 +433,13 @@ def main(argv=None, *, device=None):
     """Parse ``argv`` (default ``sys.argv[1:]``), refuse what the port
     does not run, then pretrain the target, measure the profile (unless
     ``--no-adaptive``), serve and report on ``device`` (default: the CUDA
-    card; raises without one).  Returns (system, completed requests)."""
+    card; raises without one).  Returns (system, completed requests), the
+    system a ``ServingFleet`` under ``--fleet-replicas``."""
     args = build_parser().parse_args(argv)
     if args.dryrun:
         raise NotImplementedError(
             "--dryrun is not ported yet (ROADMAP queue 1 item 9: launch "
             "tooling)")
-    fleet_config_from_args(args)
     args.continuous = (args.continuous or args.gate_arrivals
                        or args.policy != "fifo")
     from repro_torch.serving.engine import resolve_device
@@ -430,6 +479,12 @@ def main(argv=None, *, device=None):
                           zip(profile.batch_sizes, profile.t_ms))
               + f"; D0 {profile.d0_ms:.3f} ms; c({b}) {profile.c(b):.3f}, "
               f"beta({b}, {g}) {profile.beta(b, g):.3f}")
+    if args.fleet_replicas > 0:
+        fleet, done, wall_s = serve_fleet(args, cfg, params, profile,
+                                          domains, device=device,
+                                          dparams=dparams)
+        report_fleet(fleet, wall_s)
+        return fleet, done
     sys_, done, wall_s = serve(args, cfg, params, profile, domains,
                                device=device, dparams=dparams)
     report(args, sys_, wall_s)

@@ -111,6 +111,10 @@ Differences from the JAX engine:
     victim's lane is inert from its spill until its next owner's refill
     or commit, so a chunked refill into it does not take the victim's
     tokens while it prefills.
+  * ``adopt_compiled`` (a fleet replica, ``repro_torch.fleet.router``):
+    the eager port has no jitted step functions to share; it keeps JAX's
+    checks, the same params object among them, and shares the constant
+    base sampling key.
 """
 from __future__ import annotations
 
@@ -760,6 +764,31 @@ class ServingEngine:
                                       device=self.device)
             c["pad"] = pad.to(torch.int32, copy=True)
         return cache_s, dcache_s
+
+    # ------------------------------------------------------------- fleet
+    def adopt_compiled(self, donor: "ServingEngine"):
+        """Share what a fleet replica (``repro_torch.fleet.router``) can
+        share with ``donor``.  JAX's engine shares its jitted step
+        functions here; the eager port compiles none, and derives no
+        state from the params, so what it shares is the params object
+        itself (checked: N glm4-9b replicas hold one 18.8 GB target) and
+        the constant base sampling key.  JAX's checks stay: the same
+        model and draft configs, an equal ``ServingConfig`` minus the
+        per-replica ``completion_sink`` (an equal seed gives an equal
+        base key, so sampled streams stay request-keyed and
+        replica-invariant), and the same params object."""
+        if donor is self:
+            return
+        mine = dataclasses.replace(self.config, completion_sink=None)
+        theirs = dataclasses.replace(donor.config, completion_sink=None)
+        if (self.cfg != donor.cfg or self.dcfg != donor.dcfg
+                or mine != theirs):
+            raise ValueError("adopt_compiled needs identically-configured "
+                             "engines (model, draft, ServingConfig)")
+        if self.params is not donor.params:
+            raise ValueError("adopt_compiled needs the shared params "
+                             "object (one copy of the target per fleet)")
+        self._base_key = donor._base_key
 
     # ------------------------------------------------------------- deploy
     def deploy_draft(self, dparams):

@@ -4,10 +4,12 @@ fp32, fixed seeds; JAX is the oracle).
 * ``launch/serve.py``: ``build_parser`` has JAX's options, defaults,
   types and choices; ``config_from_args`` builds JAX's ``ServingConfig``
   field for field (``dataclasses.asdict``, ``completion_sink`` aside) for
-  every row of tests/test_config_mirror.py's flag table; each refused
-  flag raises ``NotImplementedError`` naming its ROADMAP queue 1 item
-  before any work, and ``--sample`` / ``--seed`` (item 4, once refused)
-  serve with their values in the engine; ``main(..., device="cpu")``
+  every row of tests/test_config_mirror.py's flag table, and
+  ``fleet_config_from_args`` JAX's ``FleetConfig``; ``--dryrun`` raises
+  ``NotImplementedError`` naming its ROADMAP queue 1 item before any
+  work, and the flags once refused (items 4-7: ``--sample``,
+  ``--seed``, the chunk, overload and fleet flags) serve with their
+  values in the engine, the fleet or the remote trainer; ``main(..., device="cpu")``
   serves 8 requests to their budgets and prints JAX's report; with a
   fixed ``LatencyProfile`` in place of the measured one (JAX's
   ``analytic_tpu_profile`` replaced by the same numbers), the port's
@@ -136,12 +138,19 @@ def test_config_from_args_matches_jax(argv):
 ], ids=lambda x: x if isinstance(x, str) else " ".join(x))
 def test_serve_refusals_name_their_item(argv, item, monkeypatch):
     """Refused before any weight is made (``T.init`` would raise).  The
-    flags of items 4, 5 and 6, refused until sampling, chunked refill
-    prefill and the overload response were ported, serve: the engine
+    flags of items 4-7, refused until sampling, chunked refill prefill,
+    the overload response and the fleet were ported, serve: the engine
     takes ``--sample`` as ``greedy=False``, ``--seed`` as its seed,
     ``--prefill-chunk`` as its chunk width, ``--commit eager`` as its
     commit policy, ``--preempt`` as its preemption policy and ``--shed``
-    and ``--shed-queue-depth`` as the shed policy it composes."""
+    and ``--shed-queue-depth`` as the shed policy it composes;
+    ``--fleet-replicas 2`` serves through a ``ServingFleet`` of two
+    replicas over one params object, ``--trainer-endpoint spawn``
+    through a ``TideSystem`` whose trainer runs in a process of its
+    own."""
+    if item == "item 7":
+        _serve_fleet_flags(argv)
+        return
     if item in ("item 4", "item 5", "item 6"):
         args = serve.build_parser().parse_args(SERVE_ARGV + argv)
         sys_, done = serve.main(SERVE_ARGV + argv, device="cpu")
@@ -163,6 +172,48 @@ def test_serve_refusals_name_their_item(argv, item, monkeypatch):
     monkeypatch.setattr(T, "init", no_init)
     with pytest.raises(NotImplementedError, match=item):
         serve.main(SERVE_ARGV + argv, device="cpu")
+
+
+def _serve_fleet_flags(argv):
+    from repro_torch.fleet import FleetConfig
+    from repro_torch.fleet.remote import RemoteTrainingService
+    from repro_torch.fleet.router import ServingFleet
+    args = serve.build_parser().parse_args(SERVE_ARGV + argv)
+    system, done = serve.main(SERVE_ARGV + argv, device="cpu")
+    want = FleetConfig(replicas=args.fleet_replicas,
+                       trainer_endpoint=args.trainer_endpoint,
+                       route=args.fleet_route)
+    assert system.tcfg.fleet == want
+    assert len(done) == 8
+    assert all(len(r.generated) == r.max_new_tokens for r in done)
+    if args.fleet_replicas:
+        assert isinstance(system, ServingFleet) and system.n == 2
+        assert all(e.params is system.engines[0].params
+                   for e in system.engines)
+        s = system.summary()
+        assert all(n > 0 for n in s["router_assigned"])
+        assert s["tokens"] == sum(len(r.generated) for r in done)
+        return
+    svc = system.service
+    assert isinstance(svc, RemoteTrainingService)
+    assert svc.endpoint == "spawn" and system.trainer is None
+    assert svc._proc.poll() is not None           # reaped by close()
+    assert system.summary()["trainer_failures"] == 0
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--fleet-replicas", "2"], ["--trainer-endpoint", "spawn"],
+    ["--fleet-replicas", "3", "--fleet-route", "rr", "--trainer-endpoint",
+     "unix:/tmp/trainer.sock"]],
+    ids=lambda a: " ".join(a) or "defaults")
+def test_fleet_config_from_args_matches_jax(argv):
+    got = serve.fleet_config_from_args(serve.build_parser().parse_args(argv))
+    want = jserve.fleet_config_from_args(
+        jserve.build_parser().parse_args(argv))
+    if want is None:
+        assert got is None
+        return
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_train_dryrun_is_refused():

@@ -27,8 +27,9 @@
   a trainer that raises, ``ckpt.save``/``load`` both ways between the
   packages, and ``data/workloads.py`` against JAX's for a few seeds.
 * Refusals: every unported configuration raises ``NotImplementedError``
-  naming its ROADMAP queue 1 item; ``TideSystem`` without ``device``
-  needs a card.  (Async mode, the service thread and the channel's
+  naming its ROADMAP queue 1 item (the ones since ported serve, the
+  fleet's through a spawned trainer process); ``TideSystem`` without
+  ``device`` needs a card.  (Async mode, the service thread and the channel's
   device are held in tests/test_torch_async.py.)
 * The config mirror: the port's ``ServingConfig`` and ``TideConfig``
   field names and defaults equal JAX's, and the flat fields mirror into
@@ -62,6 +63,7 @@ from repro_torch.configs import get  # noqa: E402
 from repro_torch.core import eagle, tide, transport  # noqa: E402
 from repro_torch.core.signals import SignalBatch  # noqa: E402
 from repro_torch.data import workloads  # noqa: E402
+from repro_torch.fleet import FleetConfig  # noqa: E402
 from repro_torch.obs import ObsConfig  # noqa: E402
 from repro_torch.serving import policy  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -618,7 +620,7 @@ def test_requests_from_trace(tiny):
 
 # ============================================================= refusals
 @pytest.mark.parametrize("kw,item", [
-    (dict(fleet=object()), "item 7"),
+    (dict(fleet=FleetConfig(trainer_endpoint="spawn")), "item 7"),
     (dict(commit="eager"), "item 5"),
     (dict(preempt="deadline"), "item 6"),
     (dict(shed="expired"), "item 6"),
@@ -630,10 +632,24 @@ def test_requests_from_trace(tiny):
         "shed_queue_depth", "sampling_seed", "chunked_eager"])
 def test_tide_unported_configs_raise(tiny, kw, item):
     """Each unported configuration raises naming its item; those of
-    items 4, 5 and 6 (sampled decoding, chunked refill prefill and its
-    eager commit, preemption and load shedding), once refused here, are
-    served: the system's knobs reach the engine, and a wave reaches its
-    budgets."""
+    items 4-7 (sampled decoding, chunked refill prefill and its eager
+    commit, preemption and load shedding, the fleet), once refused here,
+    are served: the system's knobs reach the engine (the fleet's
+    endpoint, the remote trainer), and a wave reaches its budgets."""
+    if item == "item 7":
+        from repro_torch.fleet.remote import RemoteTrainingService
+        sys_ = _port_system(tiny, **kw)
+        try:
+            assert isinstance(sys_.service, RemoteTrainingService)
+            assert sys_.service.endpoint == kw["fleet"].trainer_endpoint
+            assert sys_.trainer is None and sys_.gate is sys_.service.gate
+            done = sys_.run(iter(tiny["waves"][:1]), max_new_tokens=8)
+            assert [len(r.generated) for r in done] == [8, 8]
+            assert sys_.summary()["trainer_failures"] == 0
+        finally:
+            sys_.close()
+        assert sys_.service._proc.poll() is not None
+        return
     if item in ("item 4", "item 5", "item 6"):
         sys_ = _port_system(tiny, **kw)
         eng = sys_.engine
