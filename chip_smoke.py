@@ -113,6 +113,36 @@ Phases, one JSON line each:
            against all, parks, probes and resumes, launches; its streams
            must equal serve A's, or depart only where the target's top-2
            logit gap is within BF16_TOL of its top logit.
+  families the attention-mixer families beside glm4-9b, in a process of
+           its own (chip_smoke.py --families) run right after launch,
+           one at a time, each freed before the next: phi3-medium-14b
+           (SwiGLU, 40/10 heads), starcoder2-7b (the GELU FFN, 36/4),
+           granite-moe-3b-a800m (MoE, 40 experts top 8, 24/8 heads at
+           head_dim 64, vocabulary 49 155) and gpt-oss-120b (MoE, 128
+           experts top 4, 64/8 heads at head_dim 64) cut to 8 of its 36
+           layers (reduced: {"num_layers": [36, 8]}), each at its
+           published widths from a seed with its EAGLE-3 draft.  Each
+           serves 4 requests (prompts 24-64, 16 new tokens, greedy chain
+           gamma 3, K 8, speculation always on) on a dense engine and
+           then a paged one (page 16): every request reaches its budget,
+           the paged streams equal the dense ones, the prefill, verify,
+           extract_pack and linear_rows kernels launch (their paged
+           twins on the paged engine), no page leaks.  Then each
+           attention kernel at the family's target and draft heads
+           (prefill at batch 4, width 64, left pads; verify at T 1, 4
+           and tree 13 against a 128-row cache; dense and paged, paged
+           equal to dense on the view) and linear_rows at its (K, N)
+           (granite's N 49 155 and the router's fp32 included; rows
+           equal across M) against their plain versions; a MoE family's
+           layer-0 FFN twice on 256 tokens, equal bit for bit, and
+           against the one-hot oracle; its first run, and one on a
+           chain verify's 16 rows, under torch.cuda's sync debug mode
+           "error" (no host sync).  starcoder2-7b's cobatch verdict
+           must read none; granite-moe's (its capacity comes from the
+           refill's token count) is recorded.  One line a family:
+           parameters, peak memory, tokens/s, superstep ms, prefill ms,
+           the bytes a target forward reads and their time at 3.35 TB/s,
+           reduced; then the phase's seconds.
   ladder   glm4-9b width at 2 layers, random weights: the same 8
            requests through superstep_rounds=8 and =0 give equal greedy
            streams, dense and paged (page 16), tree speculation at
@@ -184,9 +214,10 @@ Phases, one JSON line each:
            (chain or tree W = 4) from this run.
   chunked_serve  chunked refill prefill (prefill_chunk 128: prompts of
            64-512 make 1-4 chunks) on the serve's configuration, weights
-           and 16 requests, four times: dense with cohort commit, dense
-           with eager commit, paged (page 16) at 512 pages and at 256
-           (admission defers, so the pipelines group other requests).
+           and requests, four times: dense with cohort commit (the 16),
+           dense with eager commit and paged (page 16) at 512 pages (the
+           first 8), paged at 256 (the 16: admission defers, so the
+           pipelines group other requests).
            Every request reaches its budget; the four serves' streams
            are equal; each equals the one-shot serve's or departs only
            where the target's top-2 gap is within BF16_TOL of its top
@@ -346,8 +377,9 @@ phase's count
 device_ms and host_ms), the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``.  Each kernel row also
 carries its launches in the dense cohort chunked serve
-(chunked_serve_launches) and in the overload phase's serve (b)
-(overload_serve_launches).  Any failure raises
+(chunked_serve_launches), in the overload phase's serve (b)
+(overload_serve_launches) and in the families phase's serves
+(families_launches).  Any failure raises
 and exits non-zero before the last line.  Without a CUDA card it exits non-zero
 at once.
 """
@@ -753,8 +785,11 @@ def phase_kernels():
 
 
 # a chunked refill's continuation on glm4-9b (chunked_serve): T = C =
-# 128 query rows a lane against the pipeline's 512-row staging cache
-CHUNK = dict(C=128, S=512)
+# 128 query rows a lane against the pipeline's 512-row staging cache.
+# N_CUT: the requests of the eager and 512-page chunked serves, the
+# first wave of the 16 (requests 1, 3, 5 and 7 share a prompt); cut from
+# 16 to make room for the families phase (ROADMAP H11)
+CHUNK = dict(C=128, S=512, N_CUT=8)
 
 
 def _chunk_verify_case(rnd, pad) -> dict:
@@ -1174,6 +1209,388 @@ def phase_launch_apart():
         if row.get("step") == "total":
             total = row["launches"]
         emit(row)
+    return total
+
+
+# ------------------------------------------------------------- families
+# the attention-mixer families beside glm4-9b, each at its published
+# width from a seed with its EAGLE-3 draft; gpt-oss-120b (the paper's
+# target) with 8 of its 36 layers, four repeats of its two-block
+# pattern: one layer is ~3.2 B parameters (6.4 GB of experts in bf16), so
+# all 36 do not fit the card's 80 GB
+FAMILIES = (("phi3-medium-14b", 0), ("starcoder2-7b", 0),
+            ("granite-moe-3b-a800m", 0), ("gpt-oss-120b", 8))
+# the serve of each: 4 requests, prompts of 24-64 tokens, 16 new tokens,
+# greedy chain gamma 3, K 8, speculation always on (no drafter: ROADMAP
+# H10, a measured Eq. 5 profile follows host jitter); paged at page 16
+FAMILY = dict(B=4, N=4, LO=24, HI=64, NEW=16, SMAX=128, GAMMA=3, P=16,
+              PREFILL_S=64, M=256)
+# the families whose cobatch verdict is read: starcoder2-7b, dense, must
+# read none; granite-moe's MoE capacity comes from the refill's token
+# count (JAX's _capacity), so its verdict is recorded, not asserted
+COBATCH_FAMILIES = {"starcoder2-7b": True, "granite-moe-3b-a800m": False}
+# moe_sort against the one-hot oracle in bf16, as a whole: each of the
+# three expert products rounds its output to bf16 and the sort path adds
+# a token's k contributions in bf16 (JAX's order), the oracle in fp32;
+# on an H100 80GB HBM3 at 700 W the two read 3.9e-3 (gpt-oss-120b) and
+# 4.6e-3 (granite-moe) apart
+MOE_REL_L2_TOL = 2e-2
+
+
+def _family_cfg(arch, layers):
+    """(config, reduced) of one family: published widths, ``layers``
+    (0: all) of its depth."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    if not layers:
+        return cfg, None
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {"num_layers": [cfg.num_layers, layers]})
+
+
+def _family_attention_cases(heads, g) -> dict:
+    """The attention kernels at one (Hq, Hk, D) of a family (its target's
+    or its draft's), each against its plain version in bf16: the prefill
+    at batch 4, width 64 with left pads, dense and paged (page 16, a
+    shuffled table; equal to dense on the gathered view); the verify at
+    T 1 and 4 (chain) and 13 (tree W 4, gamma 3) against a 128-row cache,
+    dense and paged (equal to dense on the view).  Returns {kernel name:
+    [case, ...]}."""
+    from repro_torch.core.paging import gather_view
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_paged)
+    from repro_torch.kernels.flash_attn.ref import (flash_attention_paged_ref,
+                                                    flash_attention_ref)
+    from repro_torch.kernels.verify_attn.ops import (verify_attention,
+                                                     verify_attention_paged,
+                                                     verify_route)
+    from repro_torch.kernels.verify_attn.ref import (
+        verify_attention_paged_ref, verify_attention_ref,
+        verify_attention_tree_paged_ref, verify_attention_tree_ref)
+    dev = torch.device("cuda")
+    hq, hk, d = heads
+    B, S, SMAX, P = (FAMILY[k] for k in ("B", "PREFILL_S", "SMAX", "P"))
+    tag = f"Hq {hq} Hk {hk} D {d}"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    n_tbl = SMAX // P
+    n_pages = B * n_tbl
+    tbl = torch.randperm(n_pages, generator=g, device=dev).to(
+        torch.int32).reshape(B, n_tbl).contiguous()
+    kpool, vpool = rnd(n_pages + 1, P, hk, d), rnd(n_pages + 1, P, hk, d)
+    kc, vc = gather_view(kpool, tbl), gather_view(vpool, tbl)
+    pad = torch.tensor([0, 7, 23, 40], dtype=torch.int32, device=dev)
+    got = {}
+    q = rnd(B, S, hq, d)
+    k, v = kc[:, :S].contiguous(), vc[:, :S].contiguous()
+    valid = torch.arange(S, device=dev)[None, :] >= pad[:, None]
+    for name, out, ref in (
+            ("flash_attention", flash_attention(q, k, v, pad),
+             flash_attention_ref(q, k, v, pad)),
+            ("flash_attention_paged",
+             flash_attention_paged(q, kpool, vpool, tbl, pad),
+             flash_attention_paged_ref(q, kpool, vpool, tbl, pad))):
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), f"{name} {tag} non-finite"
+        err, rel = hold(out[valid], ref[valid], f"{name} {tag}")
+        assert not out[~valid].any(), "rows before pad must be zeros"
+        if name == "flash_attention_paged":
+            assert torch.equal(out, got["_prefill_out"]), \
+                f"{name} {tag} != dense kernel on the view"
+        got["_prefill_out"] = out
+        got[name] = [dict(shape=f"q {tuple(q.shape)} {tag} bf16, pad "
+                                f"{pad.tolist()}", max_abs_err=err,
+                          rel_l2_err=rel)]
+    del got["_prefill_out"]
+    ln = torch.tensor([40, 57, 90, 110], dtype=torch.int32, device=dev)
+    for t, tree in ((1, None), (4, None), (13, (4, 3))):
+        qt = rnd(B, t, hq, d)
+        kw = {} if tree is None else {"tree": tree}
+        dense = verify_attention(qt, kc, vc, ln, pad, **kw)
+        paged = verify_attention_paged(qt, kpool, vpool, tbl, ln, pad, **kw)
+        if tree is None:
+            ref = verify_attention_ref(qt, kc, vc, ln, pad)
+            pref = verify_attention_paged_ref(qt, kpool, vpool, tbl, ln, pad)
+        else:
+            ref = verify_attention_tree_ref(qt, kc, vc, ln, pad, tree=tree)
+            pref = verify_attention_tree_paged_ref(qt, kpool, vpool, tbl, ln,
+                                                   pad, tree=tree)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, paged), \
+            f"verify_attention_paged {tag} T={t} != dense kernel on the view"
+        for name, out, want in (("verify_attention", dense, ref),
+                                ("verify_attention_paged", paged, pref)):
+            assert torch.isfinite(out).all(), f"{name} {tag} non-finite"
+            err, rel = hold(out, want, f"{name} {tag} T={t}")
+            name = name + ("_tree" if tree else "")
+            got.setdefault(name, []).append(dict(
+                T=t, shape=f"q {tuple(qt.shape)} cache {tuple(kc.shape)} "
+                           f"{tag} bf16", path=verify_route(torch.bfloat16, d),
+                max_abs_err=err, rel_l2_err=rel))
+    return got
+
+
+def _family_linear_cases(cfg, dcfg, g) -> list:
+    """``linear_rows`` at a family's (K, N) of the prefill and the draft
+    seed (the router's in fp32; the LM head's N is the vocabulary, 49 155
+    for granite-moe): M rows of a refill against the plain version per
+    element at BF16_TOL and against float64 as a whole (relative L2 below
+    3e-3 in bf16, one rounding of the output; 1e-5 in fp32, as the card
+    test), and the first 1, 65 and M - 1 rows equal to the widest
+    call's."""
+    from repro_torch.kernels.linear_rows.ops import linear_rows
+    from repro_torch.kernels.linear_rows.ref import linear_rows_ref
+    from repro_torch.models.config import FFN_MOE
+    dev = torch.device("cuda")
+    d, m = cfg.d_model, FAMILY["M"]
+    kn = [("q_proj", d, cfg.num_heads * cfg.head_dim, torch.bfloat16),
+          ("k_proj", d, cfg.num_kv_heads * cfg.head_dim, torch.bfloat16),
+          ("o_proj", cfg.num_heads * cfg.head_dim, d, torch.bfloat16),
+          ("lm_head", d, cfg.vocab_size, torch.bfloat16),
+          ("draft_fc", 2 * d, d, torch.bfloat16),
+          ("draft_q", d, dcfg.num_heads * dcfg.head_dim, torch.bfloat16),
+          ("draft_k", d, dcfg.num_kv_heads * dcfg.head_dim, torch.bfloat16)]
+    if any(b.ffn == FFN_MOE for b in cfg.pattern):
+        kn.append(("router", d, cfg.num_experts, torch.float32))
+    else:
+        kn += [("ffn_up", d, cfg.d_ff, torch.bfloat16),
+               ("ffn_down", cfg.d_ff, d, torch.bfloat16)]
+    cases = []
+    for name, k, n, dt in kn:
+        x = torch.randn((m, k), generator=g, device=dev).to(dt)
+        w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dt)
+        full = linear_rows(x, w)
+        for rows in (1, 65, m - 1):
+            assert torch.equal(linear_rows(x[:rows], w), full[:rows]), \
+                f"linear_rows {name} ({k}, {n}): rows move with M = {rows}"
+        ref = linear_rows_ref(x, w)
+        want = x[:128].double() @ w.double()
+        torch.cuda.synchronize()
+        assert full.shape == (m, n) and torch.isfinite(full).all()
+        torch.testing.assert_close(
+            full.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL,
+            msg=lambda e: f"linear_rows {name} ({k}, {n}): {e}")
+        err = max_err(full[:128].double(), want)
+        rel = float((full[:128].double() - want).norm() / want.norm())
+        assert rel < (3e-3 if dt == torch.bfloat16 else 1e-5), \
+            f"linear_rows {name} ({k}, {n}): rel L2 {rel} vs float64"
+        del want
+        cases.append(dict(product=name, K=k, N=n, M=m,
+                          dtype=str(dt).replace("torch.", ""),
+                          rows_equal_across_M=[1, 65, m - 1],
+                          max_abs_err=err, rel_l2_err=rel))
+    return cases
+
+
+def _moe_repeatable(cfg, params, g) -> dict:
+    """Layer 0's MoE FFN on a refill's worth of tokens, twice: the same
+    output and aux bit for bit (the combine adds in a fixed order); and
+    against the one-hot einsum oracle in bf16, per element at BF16_TOL
+    and as a whole at relative L2 below MOE_REL_L2_TOL.  The first call,
+    and one at the chain verify's B x (gamma + 1) rows, run under
+    ``torch.cuda.set_sync_debug_mode("error")``: the routing and dispatch
+    read nothing back to the host."""
+    from repro_torch.models import moe
+    from repro_torch.models.param import unflatten
+    p = unflatten({k: v[0] for k, v in params["body"]["pos0"]["moe"]
+                   .flat().items()})
+    x = torch.randn((FAMILY["B"], FAMILY["PREFILL_S"], cfg.d_model),
+                    generator=g, device="cuda").to(torch.bfloat16)
+    xv = torch.randn((FAMILY["B"], FAMILY["GAMMA"] + 1, cfg.d_model),
+                     generator=g, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_sort(cfg, p, xv)
+        a, aa = moe.moe_sort(cfg, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b, ab = moe.moe_sort(cfg, p, x)
+    ref, _ = moe.moe_einsum(cfg, p, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(aa, ab), \
+        f"{cfg.name}: moe_sort differs between two runs of one input"
+    torch.testing.assert_close(a.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    err = max_err(a, ref)
+    rel = float((a.float() - ref.float()).norm() / ref.float().norm())
+    assert rel < MOE_REL_L2_TOL, f"{cfg.name} moe_sort vs einsum: {rel}"
+    n = x.shape[0] * x.shape[1]
+    idx, _, _ = moe._route(cfg, p, x.reshape(n, -1))
+    keep = moe.dispatch(cfg, idx, n)["keep"]
+    return {"tokens": n, "capacity": moe._capacity(cfg, n),
+            "dropped": int((~keep).sum()), "assignments": keep.numel(),
+            "equal_twice": True, "no_host_sync": True,
+            "vs_einsum_max_abs_err": err,
+            "vs_einsum_rel_l2_err": rel}
+
+
+def _family_cobatch(eng, prompts) -> dict:
+    """The cobatch check (``phase_cobatch``) on a family: its shortest
+    prompt refilled alone and beside its longest."""
+    from repro_torch.obs.cobatch import cobatch_diff
+    from repro_torch.serving.request import Request
+    short, long_ = min(prompts, key=len), max(prompts, key=len)
+
+    def batch(ps):
+        reqs = [Request(prompt=list(p), max_new_tokens=1) for p in ps]
+        for i, r in enumerate(reqs):
+            r.sid = i
+        return eng._refill_arrays(list(enumerate(reqs)))[:2]
+
+    d = cobatch_diff(eng.cfg, eng.params, (*batch([short]), 0),
+                     (*batch([long_, short]), 1))
+    return {"verdict": d["first_departing_op"] or "none",
+            "first_max_abs_diff": d["first_max_abs_diff"],
+            "departing_alone_count": len(d["departing_alone"]),
+            "departing_alone": d["departing_alone"][:8],
+            "argmax_equal": d["argmax_equal"],
+            "logits_max_abs_diff": d["logits_max_abs_diff"],
+            "prompt_len": d["prompt_len"], "batch_b": d["batch_b"]}
+
+
+def phase_families():
+    """The families in a process of its own (``chip_smoke.py
+    --families``), one at a time, each freed before the next: built at
+    full width from a seed with its EAGLE-3 draft, served dense and
+    paged (FAMILY), its kernels held at its own shapes, its MoE combine
+    run twice, and (COBATCH_FAMILIES) its cobatch verdict.  One JSON line
+    a family, then the launches of all its serves."""
+    from repro_torch.core import eagle
+    from repro_torch.core.signals import SignalExtractor, SignalStore
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import FFN_MOE
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    dev = torch.device("cuda")
+    total = {}
+    for arch, layers in FAMILIES:
+        t_start = time.perf_counter()
+        cfg, reduced = _family_cfg(arch, layers)
+        dcfg = eagle.draft_config(cfg)
+        t0 = time.perf_counter()
+        params = T.init(cfg, 0, device=dev)
+        dparams = eagle.draft_init(dcfg, 1, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = [r.prompt for r in _requests(
+            np.random.default_rng(11), FAMILY["N"], FAMILY["LO"],
+            FAMILY["HI"], FAMILY["NEW"], cfg.vocab_size)]
+        serves, streams = {}, {}
+        for kind, page in (("dense", 0), ("paged", FAMILY["P"])):
+            from repro_torch.serving.request import Request
+            conf = ServingConfig(batch_size=FAMILY["B"],
+                                 max_len=FAMILY["SMAX"],
+                                 gamma=FAMILY["GAMMA"], superstep_rounds=8,
+                                 page_size=page)
+            eng = ServingEngine(cfg, params, dcfg, dparams, config=conf,
+                                device=dev,
+                                extractor=SignalExtractor(SignalStore()))
+            reqs = [Request(prompt=list(p), max_new_tokens=FAMILY["NEW"])
+                    for p in prompts]
+            summary, launches = _timed_serve(eng, reqs)
+            streams[kind] = [list(r.generated) for r in reqs]
+            need = ("flash_attention", "verify_attention", "extract_pack",
+                    "linear_rows") if not page else (
+                "flash_attention_paged", "verify_attention_paged",
+                "extract_pack", "linear_rows")
+            for name in need:
+                assert launches[name] > 0, (arch, kind, name, launches)
+            for name, n in launches.items():
+                if isinstance(n, int):
+                    total[name] = total.get(name, 0) + n
+            if page:
+                eng.release_prefix_cache()
+                eng.allocator.assert_clean()
+            serves[kind] = {k: summary[k] for k in (
+                "tokens_per_s", "wall_s", "superstep_ms_median",
+                "supersteps", "rounds", "spec_rounds", "mean_accept_len",
+                "host_syncs_per_superstep", "max_memory_allocated_GB")}
+            serves[kind]["prefill_ms"] = [
+                ms for _, _, ms in summary["prefill_rows_width_ms"]]
+            serves[kind]["prefill_rows_width"] = [
+                [r, w] for r, w, _ in summary["prefill_rows_width_ms"]]
+            serves[kind]["launches"] = launches
+            if arch in COBATCH_FAMILIES and not page:
+                cob = _family_cobatch(eng, prompts)
+            del eng
+        assert streams["paged"] == streams["dense"], \
+            f"{arch}: paged streams != dense streams"
+        g = torch.Generator(device=dev).manual_seed(7)
+        heads = {(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                 (dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim)}
+        kernels = {}
+        for h in sorted(heads):
+            for name, cases in _family_attention_cases(h, g).items():
+                kernels.setdefault(name, []).extend(cases)
+        kernels["linear_rows"] = _family_linear_cases(cfg, dcfg, g)
+        is_moe = any(b.ffn == FFN_MOE for b in cfg.pattern)
+        # the bytes one target forward reads: every weight but the
+        # embedding (a MoE layer's every expert: the batched product reads
+        # all E weight slices, filled or not)
+        wbytes = 2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
+        row = {"phase": "families", "model": cfg.name, "arch": arch,
+               "reduced": reduced, "layers": cfg.num_layers,
+               "ffn": sorted({b.ffn for b in cfg.pattern}),
+               "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+               "draft_heads": [dcfg.num_heads, dcfg.num_kv_heads,
+                               dcfg.head_dim],
+               "params_B": cfg.param_count() / 1e9,
+               "params_B_published": _family_cfg(arch, 0)[0].param_count()
+               / 1e9,
+               "active_params_B": cfg.active_param_count() / 1e9,
+               "draft_params_B": eagle.draft_param_count(dcfg) / 1e9,
+               "init_s": init_s, "requests": len(prompts),
+               "prompt_lens": [len(p) for p in prompts],
+               "new_tokens": FAMILY["NEW"],
+               "target_read_GB": wbytes / 1e9,
+               "verify_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
+               "dense": serves["dense"], "paged": serves["paged"],
+               "paged_streams_equal_dense": True,
+               "tokens_per_s": serves["dense"]["tokens_per_s"],
+               "superstep_ms": serves["dense"]["superstep_ms_median"],
+               "prefill_ms": statistics.median(serves["dense"]["prefill_ms"]),
+               "max_memory_allocated_GB":
+                   max(s["max_memory_allocated_GB"] for s in serves.values()),
+               "kernels": kernels}
+        if is_moe:
+            row["moe"] = _moe_repeatable(cfg, params, g)
+        if arch in COBATCH_FAMILIES:
+            row["cobatch"] = cob
+        row["seconds"] = time.perf_counter() - t_start
+        row["nvidia_smi"] = smi()
+        emit(row)
+        if arch in COBATCH_FAMILIES and COBATCH_FAMILIES[arch]:
+            assert cob["verdict"] == "none", \
+                f"{arch}: {cob['verdict']} departs with the refill batch"
+            assert not cob["departing_alone"], cob["departing_alone"]
+        del params, dparams
+        _free()
+    emit({"phase": "families", "step": "total", "launches": total})
+
+
+def phase_families_apart():
+    """The families phase in a process of its own (``chip_smoke.py
+    --families``), run before the parent makes any engine: each family
+    needs the card's memory (gpt-oss-120b at 8 layers ~55 GB with its
+    draft).  Forwards its JSON lines and returns its launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--families"], stdout=subprocess.PIPE,
+                          timeout=600, check=True)
+    total = None
+    for line in proc.stdout.decode().splitlines():
+        if not line.startswith("{"):
+            print(line, file=sys.stderr)
+            continue
+        row = json.loads(line)
+        if row.get("step") == "total":
+            total = row["launches"]
+        emit(row)
+    emit({"phase": "families", "step": "seconds",
+          "seconds": time.perf_counter() - t0})
     return total
 
 
@@ -2578,10 +2995,11 @@ def _prefix_resume(eng, reqs, streams) -> dict:
 def phase_chunked_serve(dense_eng, dense, dense_streams):
     """Chunked refill prefill (prefill_chunk 128: the serve's prompts of
     64-512 tokens make 1-4 chunks) on the serve phase's configuration,
-    weights and 16 requests (glm4-9b at full width and depth): dense with
-    cohort commit, dense with eager commit, paged (page 16) at the dense
-    footprint of 512 pages, and paged at 256 pages (admission defers, so
-    the pipelines group other requests).  Asserts every request reaches
+    weights and requests (glm4-9b at full width and depth): dense with
+    cohort commit (the 16 requests), dense with eager commit and paged
+    (page 16) at the dense footprint of 512 pages (the first CHUNK["N_CUT"]
+    requests), and paged at 256 pages (the 16; admission defers, so the
+    pipelines group other requests).  Asserts every request reaches
     its budget, the four serves' streams equal, each stream equal to the
     one-shot serve's or departing only at a near-tie (top-2 logit gap
     within BF16_TOL of the top logit), no prefill op wider than 128, the
@@ -2602,10 +3020,11 @@ def phase_chunked_serve(dense_eng, dense, dense_streams):
             "max_memory_allocated_GB")
     one_shot_width = max(w for _, w, _ in dense["prefill_rows_width_ms"])
     out, streams, staging = None, None, None
-    for name, kw in (("dense_cohort", {}), ("dense_eager", {"commit": "eager"}),
-                     ("paged", {"page_size": GLM["P"]}),
-                     ("paged_half", {"page_size": GLM["P"],
-                                     "num_pages": 256})):
+    for name, kw, n in (("dense_cohort", {}, 16),
+                        ("dense_eager", {"commit": "eager"}, CHUNK["N_CUT"]),
+                        ("paged", {"page_size": GLM["P"]}, CHUNK["N_CUT"]),
+                        ("paged_half", {"page_size": GLM["P"],
+                                        "num_pages": 256}, 16)):
         conf = ServingConfig(batch_size=8, max_len=1024, gamma=GLM["GAMMA"],
                              superstep_rounds=8,
                              prefill_chunk=CHUNK["C"], **kw)
@@ -2613,7 +3032,7 @@ def phase_chunked_serve(dense_eng, dense, dense_streams):
                             dense_eng.dparams, config=conf,
                             device=dense_eng.device,
                             extractor=SignalExtractor(SignalStore()))
-        reqs = _serve_requests(eng.cfg.vocab_size)
+        reqs = _serve_requests(eng.cfg.vocab_size)[:n]
         summary, launches = _timed_serve(eng, reqs)
         got = [list(r.generated) for r in reqs]
         st = eng.stats
@@ -2633,7 +3052,7 @@ def phase_chunked_serve(dense_eng, dense, dense_streams):
             assert f["top2_logit_gap"] <= BF16_TOL * abs(f["top_logit"]), \
                 f"chunked {name} departs from one-shot at no near-tie: {f}"
         row = {"phase": "chunked_serve", "engine": name,
-               "prefill_chunk": CHUNK["C"], **summary,
+               "prefill_chunk": CHUNK["C"], "requests_served": n, **summary,
                "t128_launches": t128,
                "streams_differing_from_one_shot": len(flips),
                "flips": flips, "one_shot": {k: dense[k] for k in keys},
@@ -2644,7 +3063,8 @@ def phase_chunked_serve(dense_eng, dense, dense_streams):
             staging = _staging_vs_one_shot(eng)
             row["staging_vs_one_shot"] = staging
         else:
-            assert got == streams, f"chunked {name} streams != dense cohort"
+            assert got == streams[:n], \
+                f"chunked {name} streams != dense cohort"
             row["streams_equal_dense_cohort"] = True
         if eng.paged:
             row["admission_deferrals"] = st.admission_deferrals
@@ -3928,6 +4348,7 @@ def main():
     phase_env()
     rows = phase_kernels_apart()
     launch = phase_launch_apart()
+    families = phase_families_apart()
     phase_ladder()
     launches, eng, dense, dense_streams, signals = phase_serve()
     phase_cobatch(eng)
@@ -3976,12 +4397,13 @@ def main():
         row["launch_phase_launches"] = launch.get(row["name"], 0)
         row["chunked_serve_launches"] = chunked.get(row["name"], 0)
         row["overload_serve_launches"] = overload.get(row["name"], 0)
+        row["families_launches"] = families.get(row["name"], 0)
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "launch_phase_launches", "chunked_serve_launches",
-        "overload_serve_launches")}
+        "overload_serve_launches", "families_launches")}
         for row in rows]})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -3996,5 +4418,8 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--launch"]:
         _use_checkout()
         phase_launch()
+    elif sys.argv[1:] == ["--families"]:
+        _use_checkout()
+        phase_families()
     else:
         main()

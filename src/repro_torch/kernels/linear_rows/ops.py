@@ -52,7 +52,13 @@ def linear_rows(x, w):
     CPU tensors take ``linear_rows_ref`` (``x @ w``); CUDA tensors launch
     ``csrc/linear_rows.cu`` or raise: row r of the result depends only
     on row r of x and on w, bit for bit, whatever the other rows.
-    ``linear_rows.launches`` counts the kernel launches."""
+    ``linear_rows.launches`` counts the kernel launches.
+
+    The kernel reads w through a TMA descriptor, whose row stride must be
+    a multiple of 16 bytes.  An N off that (granite-moe's vocabulary,
+    49 155) runs on a copy of w padded with zero columns to the next
+    multiple, and the result is cut back to N columns: its columns are
+    the unpadded product's, and rows stay independent of M."""
     if on_cpu(x, w):
         return linear_rows_ref(x, w)
     require(w.dim() == 2 and x.shape[-1] == w.shape[0],
@@ -62,8 +68,11 @@ def linear_rows(x, w):
     k, n = w.shape
     code = dtype_code(x)
     vec = 8 if code == 1 else 4
-    require(k % vec == 0 and n % vec == 0,
-            f"K {k} and N {n} must be multiples of {vec} (16-byte rows)")
+    require(k % vec == 0,
+            f"K {k} must be a multiple of {vec} (16-byte rows)")
+    if n % vec:
+        wide = torch.nn.functional.pad(w, (0, vec - n % vec))
+        return linear_rows(x, wide)[..., :n].contiguous()
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]

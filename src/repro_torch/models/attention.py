@@ -192,7 +192,26 @@ def self_attention_prefill(cfg: ModelConfig, params, x, positions, pad=None,
         o = flash_attention_paged(q, k_pool, v_pool, tbl_rows, pad,
                                   causal=True, window=cfg.window,
                                   softcap=cfg.attn_logit_softcap)
-    return out_proj(params, o, linear), (k, v)
+    return out_proj(params, pad_rows_mean_v(o, v, pad), linear), (k, v)
+
+
+def pad_rows_mean_v(o, v, pad):
+    """JAX's value at the rows before a lane's left pad, put into the
+    prefill kernels' output ``o`` (B, S, Hq, D), where those rows are
+    zero.  JAX masks every key of such a row at -1e30, so its softmax is
+    uniform over the S keys: the row reads the mean of the lane's V (B, S,
+    Hk, D), its weight 1/S cast to V's dtype as JAX's mixed-precision
+    ``attend`` casts it.  A dense FFN never lets these rows reach a valid
+    one; a MoE layer routes them and counts them against its capacity,
+    so they decide which valid assignments drop."""
+    if pad is None:
+        return o
+    b, s, hq, _ = o.shape
+    w = float(torch.tensor(1.0 / s).to(v.dtype))
+    mean = (v.float().sum(1) * w).to(o.dtype)                  # (B, Hk, D)
+    mean = mean.repeat_interleave(hq // v.shape[2], dim=1)     # (B, Hq, D)
+    rows = torch.arange(s, device=o.device)[None] < pad.to(o.device)[:, None]
+    return torch.where(rows[:, :, None, None], mean[:, None], o)
 
 
 def self_attention_train(cfg: ModelConfig, params, x):

@@ -1,11 +1,11 @@
 """Shared layers (port of ``repro/models/layers.py``): RMSNorm, the
-SwiGLU FFN, the token embedding and the LM head."""
+SwiGLU and GELU FFNs, the token embedding and the LM head."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import FFN_SWIGLU, ModelConfig
+from repro_torch.models.config import FFN_GELU, FFN_SWIGLU, ModelConfig
 from repro_torch.models.param import ParamSpec
 
 # Logical axis names (kept from the reference so the specs compare equal).
@@ -15,7 +15,15 @@ HEADS = "heads"
 KV_HEADS = "kv_heads"
 QKV = "qkv"
 VOCAB = "vocab"
+EXPERTS = "experts"
 LAYERS = "layers"
+
+
+def _unported_ffn(kind: str):
+    return NotImplementedError(
+        f"FFN {kind!r} is not ported yet: the port runs the SwiGLU and "
+        "GELU FFNs here and the MoE FFN in models/moe.py (ROADMAP queue "
+        "1 item 8)")
 
 
 def rmsnorm_specs(d: int) -> dict:
@@ -32,26 +40,35 @@ def rmsnorm(params, x, eps: float):
 
 def ffn_specs(cfg: ModelConfig, kind: str, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
-    if kind != FFN_SWIGLU:
-        raise NotImplementedError(
-            f"FFN {kind!r} is not ported yet (ROADMAP queue 1 "
-            "item 8: other model families)")
-    return {
-        "w_gate": ParamSpec((d, f), (EMBED, MLP)),
-        "w_up": ParamSpec((d, f), (EMBED, MLP)),
-        "w_down": ParamSpec((f, d), (MLP, EMBED)),
-    }
+    if kind == FFN_SWIGLU:
+        return {
+            "w_gate": ParamSpec((d, f), (EMBED, MLP)),
+            "w_up": ParamSpec((d, f), (EMBED, MLP)),
+            "w_down": ParamSpec((f, d), (MLP, EMBED)),
+        }
+    if kind == FFN_GELU:
+        return {
+            "w_up": ParamSpec((d, f), (EMBED, MLP)),
+            "b_up": ParamSpec((f,), (MLP,), init="zeros"),
+            "w_down": ParamSpec((f, d), (MLP, EMBED)),
+            "b_down": ParamSpec((d,), (EMBED,), init="zeros"),
+        }
+    raise _unported_ffn(kind)
 
 
 def ffn(params, x, kind: str = FFN_SWIGLU, linear=torch.matmul):
-    """SwiGLU; ``linear`` computes its three matrix products."""
-    if kind != FFN_SWIGLU:
-        raise NotImplementedError(
-            f"FFN {kind!r} is not ported yet (ROADMAP queue 1 "
-            "item 8: other model families)")
-    g = linear(x, params["w_gate"])
-    u = linear(x, params["w_up"])
-    return linear(F.silu(g) * u, params["w_down"])
+    """SwiGLU, or GELU (tanh form, JAX's ``gelu(approximate=True)``)
+    with biases added after the products; ``linear`` computes the
+    matrix products."""
+    if kind == FFN_SWIGLU:
+        g = linear(x, params["w_gate"])
+        u = linear(x, params["w_up"])
+        return linear(F.silu(g) * u, params["w_down"])
+    if kind == FFN_GELU:
+        h = F.gelu(linear(x, params["w_up"]) + params["b_up"].to(x.dtype),
+                   approximate="tanh")
+        return linear(h, params["w_down"]) + params["b_down"].to(x.dtype)
+    raise _unported_ffn(kind)
 
 
 def embed_specs(cfg: ModelConfig) -> dict:

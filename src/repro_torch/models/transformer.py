@@ -1,4 +1,4 @@
-"""Target model, dense attention path (port of the ATTN-group part of
+"""Target model, attention-mixer path (port of the ATTN-group part of
 ``repro/models/transformer.py``).
 
 Parameters keep the JAX layout: each layer group holds stacked ``(L, ...)``
@@ -18,9 +18,13 @@ straight into the pools (no dense K/V is built).
 Entry points: ``param_specs`` / ``init``, ``prefill``, ``decode_step``
 (chain or draft tree), ``commit_cache``, ``init_cache``, ``paged_check``,
 ``tree_check``, and ``forward_train`` (the teacher-forced loss of the
-target trainer, ``training/trainer.py``).  Only attention mixers
-with the SwiGLU FFN are ported; other block kinds raise
-``NotImplementedError``.
+target trainer, ``training/trainer.py``).  Attention mixers (``ATTN``,
+``ATTN_SW``) with the SwiGLU, GELU or MoE FFN (``models/moe.py``, its
+weights under ``moe``) are ported; other block kinds raise
+``NotImplementedError``.  A MoE layer's expert capacity comes from the
+token count of the call (JAX's ``_capacity``), so no shape choice of the
+port (``last_only``, the paged prefill) changes the rows a MoE layer
+sees: the head's rows are picked after the last layer.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import torch.utils.checkpoint
 from repro_torch.checkpoint import bridge
 from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.models import attention as attn
-from repro_torch.models.config import (ATTN, ATTN_SW, FFN_SWIGLU, BlockDef,
-                                       ModelConfig)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.config import (ATTN, ATTN_SW, FFN_GELU, FFN_MOE,
+                                       FFN_SWIGLU, BlockDef, ModelConfig)
 from repro_torch.models.layers import (LAYERS, embed, embed_specs, ffn,
                                        ffn_specs, head_specs, lm_head,
                                        rmsnorm, rmsnorm_specs)
@@ -42,19 +47,28 @@ from repro_torch.models.param import (ParamSpec, ParamTree, init_params,
 
 
 # ===================================================================== specs
+_FFNS = (FFN_SWIGLU, FFN_GELU, FFN_MOE)
+
+
 def _check_block(blk: BlockDef):
-    if blk.mixer not in (ATTN, ATTN_SW) or blk.ffn != FFN_SWIGLU or blk.cross:
+    if blk.mixer not in (ATTN, ATTN_SW) or blk.ffn not in _FFNS \
+            or blk.cross:
         raise NotImplementedError(
             f"block {blk} is not ported yet: the port runs attention "
-            "mixers with the SwiGLU FFN (ROADMAP queue 1 item 8: other "
-            "model families)")
+            "mixers with the SwiGLU, GELU or MoE FFN (ROADMAP queue 1 "
+            "item 8: the MLA, Mamba, RWKV-6 and cross-attention blocks)")
 
 
 def layer_specs(cfg: ModelConfig, blk: BlockDef) -> dict:
     _check_block(blk)
     d = cfg.d_model
-    return {"norm1": rmsnorm_specs(d), "mix": attn.attn_specs(cfg),
-            "norm2": rmsnorm_specs(d), "ffn": ffn_specs(cfg, blk.ffn)}
+    s = {"norm1": rmsnorm_specs(d), "mix": attn.attn_specs(cfg),
+         "norm2": rmsnorm_specs(d)}
+    if blk.ffn == FFN_MOE:
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["ffn"] = ffn_specs(cfg, blk.ffn)
+    return s
 
 
 def stack_specs(specs, n: int):
@@ -68,7 +82,8 @@ def model_groups(cfg: ModelConfig) -> List[Tuple[str, Tuple[BlockDef, ...], int]
     if cfg.prologue or cfg.encoder_layers or cfg.num_image_tokens:
         raise NotImplementedError(
             f"{cfg.name}: prologue/encoder/image groups are not ported yet "
-            "(ROADMAP queue 1 item 8: other model families)")
+            "(ROADMAP queue 1 item 8: the MLA prologue, cross-attention "
+            "and encoder groups)")
     for blk in cfg.pattern:
         _check_block(blk)
     return [("body", cfg.pattern, cfg.num_pattern_repeats)]
@@ -113,44 +128,61 @@ def _train_slices(group, repeats: int, pi: int):
 
 
 # ============================================================== layer apply
-def apply_layer_prefill(cfg: ModelConfig, p, x, positions, pad, pools=None,
-                        tbl_rows=None, *, linear):
-    """Returns (x, (k, v)).  ``pools``/``tbl_rows``: the paged prefill
-    (``attention.self_attention_prefill``).  ``linear``: the matrix
-    product of the projections and the FFN."""
+def apply_ffn(cfg: ModelConfig, blk: BlockDef, p, h, linear=torch.matmul,
+              moe_impl: str = "sort"):
+    """The layer's FFN on ``h`` (B, T, D): (out, aux), aux a 0-dim fp32
+    tensor for a MoE block (its load-balance loss), else None.  Serving
+    takes the sort dispatch; ``moe_impl`` is ``forward_train``'s."""
+    if blk.ffn == FFN_MOE:
+        return moe_mod.moe(cfg, p["moe"], h, moe_impl, linear)
+    return ffn(p["ffn"], h, blk.ffn, linear), None
+
+
+def apply_layer_prefill(cfg: ModelConfig, blk: BlockDef, p, x, positions,
+                        pad, pools=None, tbl_rows=None, *, linear):
+    """Returns (x, (k, v), aux).  ``pools``/``tbl_rows``: the paged
+    prefill (``attention.self_attention_prefill``).  ``linear``: the
+    matrix product of the projections, the FFN and the router."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, kv = attn.self_attention_prefill(cfg, p["mix"], h, positions, pad,
                                           pools=pools, tbl_rows=tbl_rows,
                                           linear=linear)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + ffn(p["ffn"], h2, linear=linear), kv
+    out2, aux = apply_ffn(cfg, blk, p, h2, linear)
+    return x + out2, kv, aux
 
 
-def apply_layer_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths,
-                       pad, page_tbl=None, tree=None, linear=torch.matmul):
+def apply_layer_decode(cfg: ModelConfig, blk: BlockDef, p, x, k_cache,
+                       v_cache, lengths, pad, page_tbl=None, tree=None,
+                       linear=torch.matmul):
     """Writes this layer's new K/V into k_cache/v_cache (or, with
     ``page_tbl``, its page pools) in place.  ``tree=(W, γ)``: the rows
     are a flattened draft tree, scored under the tree-causal mask.
-    ``linear``: the matrix product of the projections and the FFN."""
+    ``linear``: the matrix product of the projections, the FFN and the
+    router."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     out, _ = attn.self_attention_decode(cfg, p["mix"], h, k_cache, v_cache,
                                         lengths, pad, page_tbl=page_tbl,
                                         tree=tree, linear=linear)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + ffn(p["ffn"], h2, linear=linear)
+    return x + apply_ffn(cfg, blk, p, h2, linear)[0]
 
 
-def apply_layer_train(cfg: ModelConfig, p, x):
+def apply_layer_train(cfg: ModelConfig, blk: BlockDef, moe_impl: str, p, x):
     """One layer of the training forward: causal over positions [0, S),
     products through ``torch.matmul``, the attention through
     ``attention.self_attention_train`` (the prefill kernel storing its
-    LSE, its gradient the backward kernel)."""
+    LSE, its gradient the backward kernel).  Returns (x, aux), aux a
+    0-dim fp32 tensor (0 for a dense FFN)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + attn.self_attention_train(cfg, p["mix"], h)
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + ffn(p["ffn"], h2)
+    out, aux = apply_ffn(cfg, blk, p, h2, moe_impl=moe_impl)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
 
 
 # ============================================================= group runner
@@ -164,10 +196,11 @@ def _update_caps(caps, cap_targets, lidx: int, x):
 def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
                       pad, base_idx: int, cap_targets, max_len: int, caps,
                       pool_group=None, tbl_rows=None):
-    """Loop over the group's layers.  Returns (x, cache_group, caps);
-    with ``pool_group`` (the live paged cache's group) each layer writes
-    its K/V through ``tbl_rows`` into the pools and cache_group is
-    None."""
+    """Loop over the group's layers.  Returns (x, cache_group, caps,
+    aux); with ``pool_group`` (the live paged cache's group) each layer
+    writes its K/V through ``tbl_rows`` into the pools and cache_group
+    is None.  ``aux``: the MoE layers' summed load-balance loss (None
+    without a MoE layer)."""
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prefill len {s} > max_len {max_len}")
@@ -181,22 +214,25 @@ def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
                 "k": torch.zeros(shape, dtype=x.dtype, device=x.device),
                 "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
+    aux = None
     for i in range(repeats):
-        for pi in range(len(pattern)):
+        for pi, blk in enumerate(pattern):
             pools = None
             if pool_group is not None:
                 entry = pool_group[f"pos{pi}"]
                 pools = (entry["k"][i], entry["v"][i])
-            x, (k, v) = apply_layer_prefill(cfg, per_pos[pi][i], x,
-                                            positions, pad, pools, tbl_rows,
-                                            linear=linear_rows)
+            x, (k, v), a = apply_layer_prefill(
+                cfg, blk, per_pos[pi][i], x, positions, pad, pools,
+                tbl_rows, linear=linear_rows)
+            if a is not None:
+                aux = a if aux is None else aux + a
             if cache_group is not None:
                 entry = cache_group[f"pos{pi}"]
                 entry["k"][i, :, :s] = k
                 entry["v"][i, :, :s] = v
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
-    return x, cache_group, caps
+    return x, cache_group, caps, aux
 
 
 def run_group_decode(cfg, group_params, pattern, repeats, x, cache_group,
@@ -204,11 +240,11 @@ def run_group_decode(cfg, group_params, pattern, repeats, x, cache_group,
                      page_tbl=None, tree=None, linear=torch.matmul):
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
     for i in range(repeats):
-        for pi in range(len(pattern)):
+        for pi, blk in enumerate(pattern):
             entry = cache_group[f"pos{pi}"]
-            x = apply_layer_decode(cfg, per_pos[pi][i], x, entry["k"][i],
-                                   entry["v"][i], lengths, pad, page_tbl,
-                                   tree, linear)
+            x = apply_layer_decode(cfg, blk, per_pos[pi][i], x,
+                                   entry["k"][i], entry["v"][i], lengths,
+                                   pad, page_tbl, tree, linear)
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, caps
@@ -237,10 +273,12 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     """Prompt pass.  tokens: (B, S); pad: optional (B,) left-pad widths
     (RoPE positions max(arange(S) - pad, 0)).  Returns dict(logits (B,V)
     fp32 at the last position, cache (K/V placed in max_len buffers),
-    captures (B, S, 3D)).  Its matrix products whose row count is the
-    refill's (the projections, the FFN and the last-position LM head)
-    run through ``linear_rows``, so a prompt's rows do not depend on the
-    prompts that share its refill.
+    captures (B, S, 3D), aux (the MoE layers' load-balance loss, a
+    0-dim fp32 tensor)).  Its matrix products whose row count is the
+    refill's (the projections, the dense FFN, the router and the
+    last-position LM head) run through ``linear_rows``, so a prompt's
+    rows do not depend on the prompts that share its refill (a MoE
+    layer's do through its capacity, as in JAX).
 
     Paged: ``pools`` is a live paged cache (``init_cache(...,
     page_size=P)``) and ``tbl_rows`` (B, n_tbl) the page ids of each
@@ -257,14 +295,17 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     else:
         positions = torch.clamp(ar - pad[:, None].long(), min=0)
     cache: Dict[str, Any] = {}
+    auxes = []
 
     def runner(name, pattern, repeats, x, base, caps):
-        x, group, caps = run_group_prefill(
+        x, group, caps, aux = run_group_prefill(
             cfg, params[name], pattern, repeats, x, positions, pad, base,
             cfg.captures, max_len, caps,
             None if pools is None else pools[name], tbl_rows)
         if group is not None:
             cache[name] = group
+        if aux is not None:
+            auxes.append(aux)
         return x, caps
 
     x, caps = _run_groups(cfg, params, x, runner)
@@ -274,8 +315,10 @@ def prefill(cfg: ModelConfig, params, tokens, *,
     cache["lengths"] = torch.full((b,), s, dtype=torch.int32, device=dev)
     cache["pad"] = (torch.zeros((b,), dtype=torch.int32, device=dev)
                     if pad is None else pad.to(torch.int32, copy=True))
+    aux = sum(auxes[1:], auxes[0]) if auxes else torch.zeros(
+        (), dtype=torch.float32, device=dev)
     return {"logits": logits.float(), "cache": cache,
-            "captures": _caps_to_features(caps)}
+            "captures": _caps_to_features(caps), "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, *, tree=None,
@@ -292,7 +335,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, *, tree=None,
     prefill does).  ``last_only``: the LM head runs on the last position
     alone and ``logits`` is (B, V), the row the prefill returns (through
     ``linear_rows`` a row's value does not depend on the rows beside
-    it)."""
+    it); every layer, a MoE layer's capacity included, still sees all
+    B·T rows."""
     lengths, pad = cache["lengths"], cache["pad"]
     page_tbl = cache.get("page_tbl")
     x = embed(params["embed"], tokens, cfg.act_dtype)
@@ -329,24 +373,26 @@ def forward_train(cfg: ModelConfig, params, batch, *, moe_impl: str = "sort",
     or a nested dict of tensors (a trainer's leaves that require grad).
     ``remat=True`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), as JAX's
-    ``jax.checkpoint`` does.  ``moe_impl`` is JAX's signature: the port
-    runs no MoE block.  Returns (loss, {"ce", "aux", "accuracy"}), 0-dim
-    fp32 tensors; ``aux`` is 0 (no MoE balance loss), the accuracy
-    detached."""
-    del moe_impl
+    ``jax.checkpoint`` does.  ``moe_impl``: the MoE layers' dispatch
+    (``models/moe.py``).  Returns (loss, {"ce", "aux", "accuracy"}),
+    0-dim fp32 tensors: the loss is ce + aux, aux the MoE layers' summed
+    load-balance loss (0 without one), the accuracy detached."""
     tokens, targets = batch["tokens"], batch["targets"].long()
     x = embed(params["embed"], tokens, cfg.act_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for name, pattern, repeats in model_groups(cfg):
         per_pos = [_train_slices(params[name], repeats, pi)
                    for pi in range(len(pattern))]
         for i in range(repeats):
-            for pi in range(len(pattern)):
+            for pi, blk in enumerate(pattern):
                 if remat:
-                    x = torch.utils.checkpoint.checkpoint(
-                        apply_layer_train, cfg, per_pos[pi][i], x,
-                        use_reentrant=False)
+                    x, a = torch.utils.checkpoint.checkpoint(
+                        apply_layer_train, cfg, blk, moe_impl,
+                        per_pos[pi][i], x, use_reentrant=False)
                 else:
-                    x = apply_layer_train(cfg, per_pos[pi][i], x)
+                    x, a = apply_layer_train(cfg, blk, moe_impl,
+                                             per_pos[pi][i], x)
+                aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = lm_head(params.get("head"), params["embed"], x,
                      cfg.tie_embeddings).float()
@@ -356,7 +402,6 @@ def forward_train(cfg: ModelConfig, params, batch, *, moe_impl: str = "sort",
     ll = logits.gather(-1, tgt[..., None])[..., 0]
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = ((logz - ll) * mask).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     with torch.no_grad():
         acc = ((logits.argmax(-1) == tgt).float() * mask).sum() / denom
     return ce + aux, {"ce": ce, "aux": aux, "accuracy": acc}

@@ -19,7 +19,9 @@ every op's output, bit for bit:
 
 The op sequence mirrors ``transformer.prefill`` with a dense cache (the
 layer's K/V rows are the ``k_rope`` and ``v_proj`` outputs), and the
-function checks that its logits equal ``transformer.prefill``'s.
+function checks that its logits equal ``transformer.prefill``'s.  A MoE
+layer's FFN is one op (``moe``): its expert capacity comes from the
+batch's token count (JAX's ``_capacity``), so it can depart alone.
 
     diff = cobatch_diff(cfg, params, (toks_a, pad_a, row_a),
                         (toks_b, pad_b, row_b))
@@ -41,12 +43,38 @@ from repro_torch.kernels.flash_attn.ops import (flash_attention,
 from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                  verify_attention_paged)
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import _proj, apply_rope, out_proj
+from repro_torch.models.attention import (_proj, apply_rope, out_proj,
+                                          pad_rows_mean_v)
+from repro_torch.models.config import FFN_GELU, FFN_MOE
 from repro_torch.models.layers import embed, lm_head, rmsnorm
 
 # (name, fn, input keys, output key); fn takes the inputs in that order
 Step = Tuple[str, Callable, Sequence[str], str]
+
+
+def _ffn_steps(cfg, blk, p, tag: str, linear) -> List[Step]:
+    """The layer's FFN on "h" as steps, its output "a"."""
+    if blk.ffn == FFN_MOE:
+        return [(tag + "moe", lambda h: moe.moe_sort(cfg, p["moe"], h,
+                                                     linear)[0],
+                 ["h"], "a")]
+    f = p["ffn"]
+    if blk.ffn == FFN_GELU:
+        return [
+            (tag + "ffn_up", lambda h: linear(h, f["w_up"])
+             + f["b_up"].to(h.dtype), ["h"], "u"),
+            (tag + "ffn_act", lambda u: torch.nn.functional.gelu(
+                u, approximate="tanh"), ["u"], "g"),
+            (tag + "ffn_down", lambda g: linear(g, f["w_down"])
+             + f["b_down"].to(g.dtype), ["g"], "a")]
+    return [
+        (tag + "ffn_gate", lambda h: linear(h, f["w_gate"]), ["h"], "g"),
+        (tag + "ffn_up", lambda h: linear(h, f["w_up"]), ["h"], "u"),
+        (tag + "ffn_act", lambda g, u: torch.nn.functional.silu(g) * u,
+         ["g", "u"], "g"),
+        (tag + "ffn_down", lambda g: linear(g, f["w_down"]), ["g"], "a")]
 
 
 def prefill_steps(cfg, params, pad, positions,
@@ -54,8 +82,9 @@ def prefill_steps(cfg, params, pad, positions,
     """The dense target prefill of ``transformer.prefill`` as steps over
     a state dict that starts as {"tokens": (B, S) int}.  Every output
     but the last ("logits", (B, V) at the last position) is (B, S, ...).
-    ``linear``: the matrix product of the projections, the FFN and the
-    LM head (``transformer.prefill``'s is ``linear_rows``)."""
+    ``linear``: the matrix product of the projections, the FFN, the
+    router and the LM head (``transformer.prefill``'s is
+    ``linear_rows``)."""
     eps, theta = cfg.norm_eps, cfg.rope_theta
     steps: List[Step] = [("embed", lambda t: embed(params["embed"], t,
                                                    cfg.act_dtype),
@@ -64,9 +93,9 @@ def prefill_steps(cfg, params, pad, positions,
         per_pos = [T._slices(params[name], repeats, pi)
                    for pi in range(len(pattern))]
         for i in range(repeats):
-            for pi in range(len(pattern)):
+            for pi, blk in enumerate(pattern):
                 p = per_pos[pi][i]
-                mix, ffn = p["mix"], p["ffn"]
+                mix = p["mix"]
                 tag = f"{name}.{i * len(pattern) + pi}."
                 steps += [
                     (tag + "norm1", lambda x, p=p: rmsnorm(p["norm1"], x, eps),
@@ -84,24 +113,20 @@ def prefill_steps(cfg, params, pad, positions,
                      ["q"], "q"),
                     (tag + "k_rope", lambda k: apply_rope(k, positions, theta),
                      ["k"], "k"),
-                    (tag + "attention", lambda q, k, v: flash_attention(
-                        q, k, v, pad, causal=True, window=cfg.window,
-                        softcap=cfg.attn_logit_softcap), ["q", "k", "v"], "o"),
+                    (tag + "attention", lambda q, k, v: pad_rows_mean_v(
+                        flash_attention(q, k, v, pad, causal=True,
+                                        window=cfg.window,
+                                        softcap=cfg.attn_logit_softcap),
+                        v, pad), ["q", "k", "v"], "o"),
                     (tag + "o_proj", lambda o, m=mix: out_proj(m, o, linear),
                      ["o"], "a"),
                     (tag + "residual1", lambda x, a: x + a, ["x", "a"], "x"),
                     (tag + "norm2", lambda x, p=p: rmsnorm(p["norm2"], x, eps),
                      ["x"], "h"),
-                    (tag + "ffn_gate", lambda h, f=ffn: linear(h, f["w_gate"]),
-                     ["h"], "g"),
-                    (tag + "ffn_up", lambda h, f=ffn: linear(h, f["w_up"]),
-                     ["h"], "u"),
-                    (tag + "ffn_act", lambda g, u: torch.nn.functional.silu(g)
-                     * u, ["g", "u"], "g"),
-                    (tag + "ffn_down", lambda g, f=ffn: linear(g, f["w_down"]),
-                     ["g"], "a"),
-                    (tag + "residual2", lambda x, a: x + a, ["x", "a"], "x"),
                 ]
+                steps += _ffn_steps(cfg, blk, p, tag, linear)
+                steps.append((tag + "residual2", lambda x, a: x + a,
+                              ["x", "a"], "x"))
     steps += [
         ("final_norm", lambda x: rmsnorm(params["final_norm"], x,
                                          cfg.norm_eps), ["x"], "x"),

@@ -61,7 +61,13 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/fleet/remote.py",
                  "src/repro_torch/fleet/trainer_main.py",
                  "src/repro_torch/fleet/router.py",
-                 "src/repro_torch/fleet/bus.py"):
+                 "src/repro_torch/fleet/bus.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/configs/phi3_medium_14b.py",
+                 "src/repro_torch/configs/starcoder2_7b.py",
+                 "src/repro_torch/configs/starcoder2_15b.py",
+                 "src/repro_torch/configs/granite_moe_3b_a800m.py",
+                 "src/repro_torch/configs/gpt_oss_120b.py"):
         assert want in names
 
 

@@ -1419,3 +1419,127 @@ def test_cuda_sampling_wrappers_refuse(cuda):
         threefry2x32(keys.to(torch.int32), _words((2, 3, 2), cuda, 7))
     with pytest.raises(ValueError):
         threefry2x32(keys, _words((3, 3, 2), cuda, 7))
+
+
+# --------------- the attention-mixer families' shapes (card): phi3-medium,
+# starcoder2-7b, granite-moe, gpt-oss-120b and its draft
+# (Hq, Hk, D): groups of 4, 9, 3, 8 and 9; head_dim 64 takes the FMA loop
+FAMILY_HEADS = [(40, 10, 128), (36, 4, 128), (24, 8, 64), (64, 8, 64),
+                (45, 5, 64)]
+FAMILY_PAD = [0, 7, 23, 40]
+
+
+def _family_pools(hk, d, dev, seed, b=4, smax=128, page=16):
+    """Shuffled page pools of ``b`` lanes x ``smax`` rows, their table and
+    the dense view."""
+    n_tbl = smax // page
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    tbl = torch.randperm(b * n_tbl, generator=g).to(torch.int32).reshape(
+        b, n_tbl).to(dev)
+    kp = _randn((b * n_tbl + 1, page, hk, d), "bfloat16", dev, seed + 1)
+    vp = _randn((b * n_tbl + 1, page, hk, d), "bfloat16", dev, seed + 2)
+    return kp, vp, tbl, gather_view(kp, tbl), gather_view(vp, tbl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hk,d", FAMILY_HEADS)
+def test_cuda_family_prefill_vs_plain(cuda, hq, hk, d):
+    """The prefill at a family's heads (batch 4, width 64, left pads),
+    dense and paged, against the plain version; paged equal to dense on
+    the gathered view."""
+    s = 64
+    kp, vp, tbl, kc, vc = _family_pools(hk, d, cuda, 61)
+    q = _randn((4, s, hq, d), "bfloat16", cuda, 64)
+    pad = torch.tensor(FAMILY_PAD, dtype=torch.int32, device=cuda)
+    k, v = kc[:, :s].contiguous(), vc[:, :s].contiguous()
+    got = flash_attention(q, k, v, pad)
+    paged = flash_attention_paged(q, kp, vp, tbl, pad)
+    want = flash_attention_ref(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(paged, got), "paged != dense kernel on the view"
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol("bfloat16"))
+    assert _rel_l2(got, want) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 4, 13])
+@pytest.mark.parametrize("hq,hk,d", FAMILY_HEADS)
+def test_cuda_family_verify_vs_plain(cuda, hq, hk, d, t):
+    """The verify at a family's heads: T 1 and 4 (chain) and 13 (tree W 4,
+    gamma 3) against a 128-row cache, dense and paged, against the plain
+    version; paged equal to dense on the view; the route is the one
+    ``verify_route`` names (head_dim 64: the FMA loop)."""
+    kp, vp, tbl, kc, vc = _family_pools(hk, d, cuda, 71)
+    q = _randn((4, t, hq, d), "bfloat16", cuda, 74)
+    ln = torch.tensor([40, 57, 90, 110], dtype=torch.int32, device=cuda)
+    pad = torch.tensor(FAMILY_PAD, dtype=torch.int32, device=cuda)
+    kw = {"tree": (4, 3)} if t == 13 else {}
+    got = verify_attention(q, kc, vc, ln, pad, **kw)
+    paged = verify_attention_paged(q, kp, vp, tbl, ln, pad, **kw)
+    want = (verify_attention_tree_ref(q, kc, vc, ln, pad, tree=(4, 3))
+            if kw else verify_attention_ref(q, kc, vc, ln, pad))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(paged, got), "paged != dense kernel on the view"
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol("bfloat16"))
+    assert _rel_l2(got, want) < 1e-3
+    assert verify_route(torch.bfloat16, d) == (
+        "tensor_core_bf16" if d == 128 else "fma")
+
+
+# the families' (K, N) of the prefill and the draft seed: q, k, o, the
+# FFN (dense families), the LM head (granite-moe's N 49 155 is no
+# multiple of 8), the router in fp32 (MoE), the draft's fc, q and k
+FAMILY_LINEAR = [
+    ("bfloat16", 5120, 5120), ("bfloat16", 5120, 1280),
+    ("bfloat16", 5120, 17920), ("bfloat16", 17920, 5120),
+    ("bfloat16", 5120, 100352), ("bfloat16", 10240, 5120),
+    ("bfloat16", 4608, 4608), ("bfloat16", 4608, 512),
+    ("bfloat16", 4608, 18432), ("bfloat16", 18432, 4608),
+    ("bfloat16", 4608, 49152), ("bfloat16", 9216, 4608),
+    ("bfloat16", 1536, 1536), ("bfloat16", 1536, 512),
+    ("bfloat16", 1536, 49155), ("float32", 1536, 40),
+    ("bfloat16", 3072, 1536),
+    ("bfloat16", 2880, 4096), ("bfloat16", 2880, 512),
+    ("bfloat16", 4096, 2880), ("bfloat16", 2880, 201088),
+    ("float32", 2880, 128), ("bfloat16", 5760, 2880),
+    ("bfloat16", 2880, 2880), ("bfloat16", 2880, 320)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,k,n", FAMILY_LINEAR)
+def test_cuda_linear_rows_family_shapes(cuda, dtype, k, n):
+    """``test_cuda_linear_rows_m_invariant`` at the families' (K, N):
+    rows equal across M and shifted by a row, against float64, one-hot
+    rows exact; an N off the 16-byte row stride runs on a zero-padded
+    copy of w, one launch a call."""
+    test_cuda_linear_rows_m_invariant(cuda, dtype, k, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "gpt-oss-120b"])
+def test_cuda_moe_combine_repeatable(cuda, arch):
+    """A MoE layer at the family's widths on the card (random bf16 weights;
+    gpt-oss-120b's 128 experts): two calls of ``moe_sort`` on one input
+    give the same output and aux bit for bit (the combine adds each
+    token's k contributions in a fixed order, no atomics), and it agrees
+    with the one-hot oracle per element at the bf16 tolerance."""
+    from repro_torch.configs import get
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_params
+    cfg = get(arch)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = init_params(moe.moe_specs(cfg), g, cuda, torch.bfloat16)
+    x = torch.randn((4, 64, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    a, aa = moe.moe_sort(cfg, p, x)
+    b, ab = moe.moe_sort(cfg, p, x)
+    ref, _ = moe.moe_einsum(cfg, p, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(aa, ab)
+    np.testing.assert_allclose(_f32(a.cpu()), _f32(ref.cpu()),
+                               **_tol("bfloat16"))
+    assert _rel_l2(a, ref) < 2e-2
