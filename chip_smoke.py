@@ -82,6 +82,15 @@ Phases, one JSON line each:
            histogram within 0.035 (tests/test_speculative.py:88) of its
            exact law, the target's softmax for the chain; the tree's law
            departs from the softmax (the reference's rule; reported).
+           Multi-head latent attention (deepseek-v3-671b's widths, 128
+           heads): the prefill row's split_dims_case, the prefill at
+           (D, Dv) = (192, 128) (q/k (8, 512, 128, 192), v 128 wide) with
+           its pad-shift check, counted at (192, 128); and the
+           mla_attention row (csrc/mla_attn.cu, path mma_bf16_latent):
+           the latent-space decode at B 8, a 1024-row latent cache, T 4,
+           1 and 128, each against its plain version, its bound and
+           SDPA over [ckv ‖ kr] with the mask and scale=, pad_shift_equal
+           on kinds mla4, mla1, mla128.
   launch   the port's entry points (src/repro_torch/launch) at glm4-9b's
            full width and depth, in a process of its own
            (chip_smoke.py --launch) run before any engine is built, one
@@ -120,14 +129,21 @@ Phases, one JSON line each:
            granite-moe-3b-a800m (MoE, 40 experts top 8, 24/8 heads at
            head_dim 64, vocabulary 49 155) and gpt-oss-120b (MoE, 128
            experts top 4, 64/8 heads at head_dim 64) cut to 8 of its 36
-           layers (reduced: {"num_layers": [36, 8]}), each at its
-           published widths from a seed with its EAGLE-3 draft.  Each
+           layers (reduced: {"num_layers": [36, 8]}) and
+           deepseek-v3-671b (multi-head latent attention, 3 dense SwiGLU
+           prologue layers in the pre group, MoE layers of 256 experts
+           top 8 and a shared expert) cut to 5 of its 61 layers (3 + 2;
+           reduced: {"num_layers": [61, 5]}), each at its published
+           widths from a seed with its EAGLE-3 draft.  Each
            serves 4 requests (prompts 24-64, 16 new tokens, greedy chain
            gamma 3, K 8, speculation always on) on a dense engine and
            then a paged one (page 16): every request reaches its budget,
            the paged streams equal the dense ones, the prefill, verify,
            extract_pack and linear_rows kernels launch (their paged
-           twins on the paged engine), no page leaks.  Then each
+           twins on the paged engine), no page leaks; deepseek serves
+           dense only (mla_attention and the (192, 128) prefill launch),
+           and its paged and tree engines raise JAX's ValueError.  Then
+           each
            attention kernel at the family's target and draft heads
            (prefill at batch 4, width 64, left pads; verify at T 1, 4
            and tree 13 against a 128-row cache; dense and paged, paged
@@ -138,8 +154,12 @@ Phases, one JSON line each:
            against the one-hot oracle; its first run, and one on a
            chain verify's 16 rows, under torch.cuda's sync debug mode
            "error" (no host sync).  starcoder2-7b's cobatch verdict
-           must read none; granite-moe's (its capacity comes from the
-           refill's token count) is recorded.  One line a family:
+           must read none; granite-moe's and deepseek's (a capacity
+           comes from the refill's token count) are recorded, and
+           deepseek's must not depart in its pre group (no MoE there);
+           deepseek's MLA kernels at the serve's shapes, its products
+           (wq_a, wq_b, wkv_a, wkv_b, wo) on linear_rows, and the init's
+           peak memory.  One line a family:
            parameters, peak memory, tokens/s, superstep ms, prefill ms,
            the bytes a target forward reads and their time at 3.35 TB/s,
            reduced; then the phase's seconds.
@@ -356,8 +376,8 @@ Phases, one JSON line each:
            in-process figures.
            The verify and prefill kernels launch in every run.
   profile  torch.profiler over a short serve (8 requests of prompt 256,
-           PROFILE_NEW new tokens: a prologue and one superstep of 2
-           decoding rounds; each line carries its seconds) on the
+           PROFILE_NEW new tokens: a prologue and one superstep of 1
+           decoding round; each line carries its seconds) on the
            dense engine right
            after its serve, then on the half-pool paged engine, each
            tree engine and the W = 4 paged tree engine, each right after
@@ -369,9 +389,12 @@ Phases, one JSON line each:
 
 Then a ``total`` line with the run's seconds and the overload_serve,
 tide and fleet phases' and each profile's seconds, and the kernel table
-(``{"kernels": [...]}``: eleven rows, each with its launch count from
+(``{"kernels": [...]}``: twelve rows, each with its launch count from
 the main-path serve (for flash_attention_bwd, the train phase; for the
-sampling kernels, the dense sampled serve) that runs it, the launch
+sampling kernels, the dense sampled serve; for mla_attention, the
+families phase's deepseek serve, which also gives the prefill row's
+split_dims_launches at (192, 128), printed with that case's times on the
+line before) that runs it, the launch
 phase's count
 (launch_phase_launches) and its ms,
 device_ms and host_ms), the nvidia-smi
@@ -452,7 +475,7 @@ def cuda_ms(fn, iters: int = 20) -> float:
 
 # the port's CUDA kernels, by the names the profiler lists
 PORT_KERNELS = ("attn_rows", "mma_rows", "extract_pack", "linear_rows",
-                "flash_bwd", "threefry", "categorical")
+                "flash_bwd", "threefry", "categorical", "mla_rows")
 
 
 def kernel_ms(call: partial, iters: int = 20) -> dict:
@@ -573,7 +596,8 @@ def phase_kernels():
         plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, pad), iters=5),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: _sdpa(q, k, v, mask)),
-        shape=f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16, pad>0"))
+        shape=f"q {tuple(q.shape)} kv {tuple(k.shape)} bf16, pad>0",
+        split_dims_case=_split_dims_case(rnd, pad)))
 
     # ---- verify attention at T = 4 (target verify), 1, 511
     kc, vc = rnd(B, SMAX, HK, D), rnd(B, SMAX, HK, D)
@@ -723,6 +747,7 @@ def phase_kernels():
         shape=f"q {tuple(q.shape)} pools {tuple(kpool.shape)} bf16, pad>0"))
 
     rows += _tree_rows(rnd, kc, vc, pad, kpool, vpool, table)
+    rows.append(_mla_row(rnd, pad))
     launch_cases = _launch_serve_cases(rnd, g)
 
     # ---- extract_pack (exact), called as decode_superstep calls it: into
@@ -838,6 +863,132 @@ def _chunk_verify_case(rnd, pad) -> dict:
         library_ms=cuda_ms(lambda: _sdpa(qt, kc, vc, vmask)))
 
 
+# deepseek-v3-671b's MLA at its published widths: 128 heads, q/k 192
+# (qk_nope 128 + qk_rope 64) and v 128 in the expanded prefill; the
+# latent decode's keys [ckv ‖ kr] 512 + 64 wide, values ckv
+MLA = dict(H=128, DQK=192, DV=128, R=512, DR=64, SCALE=192 ** -0.5)
+
+
+def _sdpa_mla(ql, qr, ckv, kr, mask):
+    """One library call for the latent decode attention (yardstick only):
+    queries [q_lat ‖ q_rope], keys [ckv ‖ kr] and values ckv broadcast
+    to every head, the mask, MLA's scale."""
+    import torch.nn.functional as F
+    b, t, h, _ = ql.shape
+    s = ckv.shape[1]
+    q = torch.cat([ql, qr], -1).transpose(1, 2)
+    k = torch.cat([ckv, kr], -1)[:, None].expand(b, h, s, -1)
+    v = ckv[:, None].expand(b, h, s, -1)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None],
+                                          scale=MLA["SCALE"]).transpose(1, 2)
+
+
+def _split_dims_case(rnd, pad) -> dict:
+    """The prefill kernel at MLA's (D, Dv) = (192, 128): q/k (8, 512, 128,
+    192), v (8, 512, 128, 128) bf16, the prefill row's pads; against its
+    plain version (rows before a pad zeros), counted at (192, 128),
+    held to pad-shift invariance (a 150-row lane at 128 heads), timed
+    against SDPA with the mask."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import (flash_attention_ref,
+                                                    prefill_mask)
+    from repro_torch.obs.cobatch import pad_shift_departure
+    B, S = GLM["B"], GLM["S"]
+    H, DQK, DV = MLA["H"], MLA["DQK"], MLA["DV"]
+    dev = pad.device
+    q, k, v = rnd(B, S, H, DQK), rnd(B, S, H, DQK), rnd(B, S, H, DV)
+    n0 = flash_attention.launches_at_dims[(DQK, DV)]
+    out = flash_attention(q, k, v, pad)
+    ref = flash_attention_ref(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_at_dims[(DQK, DV)] == n0 + 1
+    assert out.shape == v.shape and torch.isfinite(out).all()
+    valid = torch.arange(S, device=dev)[None, :] >= pad[:, None]
+    err, rel = hold(out[valid], ref[valid], "flash_attention (192, 128)")
+    assert not out[~valid].any(), "rows before pad must be zeros"
+    vis = torch.clamp(torch.arange(S, device=dev)[None, :] - pad[:, None]
+                      + 1, min=0).sum().item() * H
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * B
+    b_ms, b_by = bound(nbytes, 2.0 * vis * (DQK + DV))
+    g = torch.Generator(device=dev).manual_seed(83)
+    lane = tuple(torch.randn((150, H, d), generator=g, device=dev).to(
+        torch.bfloat16) for d in (DQK, DQK, DV))
+    moved = pad_shift_departure("prefill", lane, extras=(0, 40))
+    assert moved is None, f"prefill (192, 128): rows moved at {moved}"
+    mask = prefill_mask(B, S, pad, device=dev)
+    return dict(
+        D=DQK, Dv=DV, heads=H, path="tensor_core_bf16",
+        shape=f"q/k {tuple(q.shape)} v {tuple(v.shape)} bf16, pad>0",
+        max_abs_err=err, rel_l2_err=rel, pad_shift_equal=True,
+        **kernel_ms(partial(flash_attention, q, k, v, pad)),
+        plain_ms=cuda_ms(lambda: flash_attention_ref(q, k, v, pad), iters=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: _sdpa(q, k, v, mask)))
+
+
+def _mla_row(rnd, pad) -> dict:
+    """The latent-space decode attention (csrc/mla_attn.cu) at
+    deepseek-v3-671b's widths: B 8, 128 heads, a 1024-row latent cache,
+    T 4 (the verify), 1 (plain decode) and 128 (a chunked refill's
+    continuation), lengths as the verify row's (at most 1024 - T), pads
+    up to each length; each against its plain version (float64), timed,
+    against SDPA over [ckv ‖ kr] with the mask and MLA's scale.  Its
+    bound: each input read once (q_lat, q_rope, the lanes' live latent
+    rows), o_lat written once, against 2 (576 + 512) flops a visible
+    (row, key) pair."""
+    from repro_torch.kernels.mla_attn.ops import mla_attention
+    from repro_torch.kernels.mla_attn.ref import mla_attention_ref
+    from repro_torch.kernels.verify_attn.ref import verify_mask
+    B, SMAX = GLM["B"], GLM["SMAX"]
+    H, R, DR, scale = MLA["H"], MLA["R"], MLA["DR"], MLA["SCALE"]
+    dev = pad.device
+    ckv, kr = rnd(B, SMAX, R), rnd(B, SMAX, DR)
+    base = torch.tensor([600, 517, 812, 1000, 64, 256, 700, 333][:B],
+                        dtype=torch.int32, device=dev)
+    cases = []
+    for t in (4, 1, 128):
+        ln = torch.clamp(base, max=SMAX - t)
+        pd = torch.minimum(pad, ln)
+        ql, qr = rnd(B, t, H, R), rnd(B, t, H, DR)
+        n0 = mla_attention.launches_at_t[t]
+        o = mla_attention(ql, qr, ckv, kr, ln, pd, scale=scale)
+        r = mla_attention_ref(ql, qr, ckv, kr, ln, pd, scale=scale)
+        torch.cuda.synchronize()
+        assert mla_attention.launches_at_t[t] == n0 + 1, "uncounted"
+        assert torch.isfinite(o).all(), f"mla_attention T={t} non-finite"
+        e, rel = hold(o, r, f"mla_attention T={t}")
+        qpos = ln[:, None] + torch.arange(t, device=dev)[None, :]
+        nvis = (qpos - pd[:, None] + 1).clamp(min=0).sum().item() * H
+        span = (ln + t - pd).sum().item()
+        nbytes = (2 * (2 * ql.numel() + qr.numel()) + 2 * span * (R + DR)
+                  + 8 * B)
+        b_ms, b_by = bound(nbytes, 2.0 * nvis * (R + DR + R))
+        mask = verify_mask(ln, t, SMAX, pd)
+        cases.append(dict(
+            T=t, max_abs_err=e, rel_l2_err=rel,
+            **kernel_ms(partial(mla_attention, ql, qr, ckv, kr, ln, pd,
+                                scale=scale)),
+            plain_ms=cuda_ms(lambda: mla_attention_ref(
+                ql, qr, ckv, kr, ln, pd, scale=scale), iters=3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: _sdpa_mla(ql, qr, ckv, kr, mask))))
+    head = cases[0]
+    return dict(
+        name="mla_attention", route="cuda",
+        source="src/repro_torch/csrc/mla_attn.cu",
+        replaces="src/repro/kernels/verify_attn/kernel.py:214",
+        computes="the absorbed decode's attention core, "
+                 "src/repro/models/mla.py:133-142 (jnp, no Pallas kernel)",
+        path="mma_bf16_latent",
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")},
+        library="scaled_dot_product_attention over [ckv ‖ kr], the mask "
+                "and scale=",
+        shape=f"T=4 q_lat {(B, 4, H, R)} q_rope {(B, 4, H, DR)} ckv "
+              f"{tuple(ckv.shape)} kr {tuple(kr.shape)} bf16", cases=cases)
+
+
 # the launch phase's serve (the serve CLI's configuration): batch 4,
 # max_len 96 (one and a half 64-key tiles), prompts of 12-23 tokens
 # refilled at a width of 24
@@ -916,6 +1067,10 @@ def phase_kernels_apart():
 
 
 # ------------------------------------------------------------- launch
+# the launches of the prefill at MLA's (192, 128) in a serve's launches
+SPLIT_DIMS_KEY = "flash_attention_192x128"
+
+
 # the launch phase's target training: steps of the launch/train twin
 # (batch 8 and seq 64, the CLI's defaults) and of pretrain_target on the
 # serve CLI's corpus, both with Adafactor (AdamW's fp32 moments for 9.40 B
@@ -1217,9 +1372,14 @@ def phase_launch_apart():
 # width from a seed with its EAGLE-3 draft; gpt-oss-120b (the paper's
 # target) with 8 of its 36 layers, four repeats of its two-block
 # pattern: one layer is ~3.2 B parameters (6.4 GB of experts in bf16), so
-# all 36 do not fit the card's 80 GB
+# all 36 do not fit the card's 80 GB; deepseek-v3-671b (multi-head latent
+# attention) with 5 of its 61 layers, its 3 dense prologue layers and 2
+# MoE layers: one MoE layer is 11.5 B parameters (22.6 GB in bf16), so 5
+# layers are 26.62 B (53.2 GB) and a sixth does not fit beside its 1.70 B
+# draft and the init's fp32 slice of one expert leaf (15.0 GB)
 FAMILIES = (("phi3-medium-14b", 0), ("starcoder2-7b", 0),
-            ("granite-moe-3b-a800m", 0), ("gpt-oss-120b", 8))
+            ("granite-moe-3b-a800m", 0), ("gpt-oss-120b", 8),
+            ("deepseek-v3-671b", 5))
 # the serve of each: 4 requests, prompts of 24-64 tokens, 16 new tokens,
 # greedy chain gamma 3, K 8, speculation always on (no drafter: ROADMAP
 # H10, a measured Eq. 5 profile follows host jitter); paged at page 16
@@ -1228,7 +1388,8 @@ FAMILY = dict(B=4, N=4, LO=24, HI=64, NEW=16, SMAX=128, GAMMA=3, P=16,
 # the families whose cobatch verdict is read: starcoder2-7b, dense, must
 # read none; granite-moe's MoE capacity comes from the refill's token
 # count (JAX's _capacity), so its verdict is recorded, not asserted
-COBATCH_FAMILIES = {"starcoder2-7b": True, "granite-moe-3b-a800m": False}
+COBATCH_FAMILIES = {"starcoder2-7b": True, "granite-moe-3b-a800m": False,
+                    "deepseek-v3-671b": False}
 # moe_sort against the one-hot oracle in bf16, as a whole: each of the
 # three expert products rounds its output to bf16 and the sort path adds
 # a token's k contributions in bf16 (JAX's order), the oracle in fp32;
@@ -1332,6 +1493,74 @@ def _family_attention_cases(heads, g) -> dict:
     return got
 
 
+def _family_mla_cases(g) -> dict:
+    """MLA's kernels at the families' serve shapes, each against its plain
+    version in bf16: the prefill at (192, 128) on batch 4, width 64 with
+    left pads, and the latent decode at T 1 and 4 against a 128-row
+    cache.  Returns {kernel name: [case, ...]}."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+    from repro_torch.kernels.mla_attn.ops import mla_attention
+    from repro_torch.kernels.mla_attn.ref import mla_attention_ref
+    dev = torch.device("cuda")
+    B, S, SMAX = FAMILY["B"], FAMILY["PREFILL_S"], FAMILY["SMAX"]
+    H, DQK, DV = MLA["H"], MLA["DQK"], MLA["DV"]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    pad = torch.tensor([0, 7, 23, 40], dtype=torch.int32, device=dev)
+    q, k, v = rnd(B, S, H, DQK), rnd(B, S, H, DQK), rnd(B, S, H, DV)
+    out, ref = flash_attention(q, k, v, pad), flash_attention_ref(q, k, v, pad)
+    torch.cuda.synchronize()
+    valid = torch.arange(S, device=dev)[None, :] >= pad[:, None]
+    err, rel = hold(out[valid], ref[valid], "flash_attention (192, 128)")
+    assert not out[~valid].any(), "rows before pad must be zeros"
+    got = {SPLIT_DIMS_KEY: [dict(shape=f"q/k {tuple(q.shape)} v "
+                                       f"{tuple(v.shape)} bf16, pad "
+                                       f"{pad.tolist()}",
+                                 max_abs_err=err, rel_l2_err=rel)]}
+    ckv, kr = rnd(B, SMAX, MLA["R"]), rnd(B, SMAX, MLA["DR"])
+    ln = torch.tensor([40, 57, 90, 110], dtype=torch.int32, device=dev)
+    for t in (1, 4):
+        ql, qr = rnd(B, t, H, MLA["R"]), rnd(B, t, H, MLA["DR"])
+        o = mla_attention(ql, qr, ckv, kr, ln, pad, scale=MLA["SCALE"])
+        r = mla_attention_ref(ql, qr, ckv, kr, ln, pad, scale=MLA["SCALE"])
+        torch.cuda.synchronize()
+        assert torch.isfinite(o).all(), "mla_attention non-finite"
+        err, rel = hold(o, r, f"mla_attention T={t} cache {SMAX}")
+        got.setdefault("mla_attention", []).append(dict(
+            T=t, shape=f"q_lat {tuple(ql.shape)} ckv {tuple(ckv.shape)} "
+                       "bf16", max_abs_err=err, rel_l2_err=rel))
+    return got
+
+
+def _mla_refusals(cfg, params, dcfg, dparams) -> dict:
+    """Paged KV and draft trees on an MLA target raise JAX's
+    ``ValueError`` (``transformer.paged_check``/``tree_check``) when the
+    engine is built."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.policy import ServingConfig
+    out = {}
+    for kind, kw, want in (
+            ("paged", {"page_size": FAMILY["P"]},
+             "paged KV cache supports attention mixers only; config has "
+             "'mla'"),
+            ("tree", {"tree_width": 4},
+             "tree speculation supports attention mixers only; config has "
+             "'mla'")):
+        try:
+            ServingEngine(cfg, params, dcfg, dparams, device="cuda",
+                          config=ServingConfig(batch_size=FAMILY["B"],
+                                               max_len=FAMILY["SMAX"], **kw))
+        except ValueError as e:
+            assert str(e) == want, (kind, str(e))
+            out[kind] = str(e)
+        else:
+            raise AssertionError(f"{cfg.name}: a {kind} engine was built")
+    return out
+
+
 def _family_linear_cases(cfg, dcfg, g) -> list:
     """``linear_rows`` at a family's (K, N) of the prefill and the draft
     seed (the router's in fp32; the LM head's N is the vocabulary, 49 155
@@ -1342,21 +1571,30 @@ def _family_linear_cases(cfg, dcfg, g) -> list:
     call's."""
     from repro_torch.kernels.linear_rows.ops import linear_rows
     from repro_torch.kernels.linear_rows.ref import linear_rows_ref
-    from repro_torch.models.config import FFN_MOE
+    from repro_torch.models.config import FFN_MOE, MLA as MLA_MIXER
     dev = torch.device("cuda")
     d, m = cfg.d_model, FAMILY["M"]
-    kn = [("q_proj", d, cfg.num_heads * cfg.head_dim, torch.bfloat16),
-          ("k_proj", d, cfg.num_kv_heads * cfg.head_dim, torch.bfloat16),
-          ("o_proj", cfg.num_heads * cfg.head_dim, d, torch.bfloat16),
-          ("lm_head", d, cfg.vocab_size, torch.bfloat16),
-          ("draft_fc", 2 * d, d, torch.bfloat16),
-          ("draft_q", d, dcfg.num_heads * dcfg.head_dim, torch.bfloat16),
-          ("draft_k", d, dcfg.num_kv_heads * dcfg.head_dim, torch.bfloat16)]
-    if any(b.ffn == FFN_MOE for b in cfg.pattern):
-        kn.append(("router", d, cfg.num_experts, torch.float32))
+    bf = torch.bfloat16
+    kinds = cfg.layer_kinds
+    if any(b.mixer == MLA_MIXER for b in kinds):
+        h, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        kn = [("wq_a", d, cfg.q_lora_rank, bf),
+              ("wq_b", cfg.q_lora_rank, h * (dn + dr), bf),
+              ("wkv_a", d, cfg.kv_lora_rank + dr, bf),
+              ("wkv_b", cfg.kv_lora_rank, h * (dn + cfg.v_head_dim), bf),
+              ("wo", h * cfg.v_head_dim, d, bf)]
     else:
-        kn += [("ffn_up", d, cfg.d_ff, torch.bfloat16),
-               ("ffn_down", cfg.d_ff, d, torch.bfloat16)]
+        kn = [("q_proj", d, cfg.num_heads * cfg.head_dim, bf),
+              ("k_proj", d, cfg.num_kv_heads * cfg.head_dim, bf),
+              ("o_proj", cfg.num_heads * cfg.head_dim, d, bf)]
+    kn += [("lm_head", d, cfg.vocab_size, bf),
+           ("draft_fc", 2 * d, d, bf),
+           ("draft_q", d, dcfg.num_heads * dcfg.head_dim, bf),
+           ("draft_k", d, dcfg.num_kv_heads * dcfg.head_dim, bf)]
+    if any(b.ffn == FFN_MOE for b in kinds):
+        kn.append(("router", d, cfg.num_experts, torch.float32))
+    if any(b.ffn != FFN_MOE for b in kinds):
+        kn += [("ffn_up", d, cfg.d_ff, bf), ("ffn_down", cfg.d_ff, d, bf)]
     cases = []
     for name, k, n, dt in kn:
         x = torch.randn((m, k), generator=g, device=dev).to(dt)
@@ -1446,6 +1684,8 @@ def _family_cobatch(eng, prompts) -> dict:
             "first_max_abs_diff": d["first_max_abs_diff"],
             "departing_alone_count": len(d["departing_alone"]),
             "departing_alone": d["departing_alone"][:8],
+            "departing_alone_groups": sorted(
+                {op.split(".")[0] for op in d["departing_alone"]}),
             "argmax_equal": d["argmax_equal"],
             "logits_max_abs_diff": d["logits_max_abs_diff"],
             "prompt_len": d["prompt_len"], "batch_b": d["batch_b"]}
@@ -1461,7 +1701,7 @@ def phase_families():
     from repro_torch.core import eagle
     from repro_torch.core.signals import SignalExtractor, SignalStore
     from repro_torch.models import transformer as T
-    from repro_torch.models.config import FFN_MOE
+    from repro_torch.models.config import FFN_MOE, MLA as MLA_MIXER
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.policy import ServingConfig
     dev = torch.device("cuda")
@@ -1470,16 +1710,22 @@ def phase_families():
         t_start = time.perf_counter()
         cfg, reduced = _family_cfg(arch, layers)
         dcfg = eagle.draft_config(cfg)
+        is_mla = any(b.mixer == MLA_MIXER for b in cfg.layer_kinds)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = T.init(cfg, 0, device=dev)
         dparams = eagle.draft_init(dcfg, 1, device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
         prompts = [r.prompt for r in _requests(
             np.random.default_rng(11), FAMILY["N"], FAMILY["LO"],
             FAMILY["HI"], FAMILY["NEW"], cfg.vocab_size)]
         serves, streams = {}, {}
-        for kind, page in (("dense", 0), ("paged", FAMILY["P"])):
+        # MLA serves dense only: paged KV and trees are refused, as in JAX
+        kinds = (("dense", 0),) if is_mla else (("dense", 0),
+                                                 ("paged", FAMILY["P"]))
+        for kind, page in kinds:
             from repro_torch.serving.request import Request
             conf = ServingConfig(batch_size=FAMILY["B"],
                                  max_len=FAMILY["SMAX"],
@@ -1496,6 +1742,8 @@ def phase_families():
                     "linear_rows") if not page else (
                 "flash_attention_paged", "verify_attention_paged",
                 "extract_pack", "linear_rows")
+            if is_mla:
+                need += ("mla_attention", SPLIT_DIMS_KEY)
             for name in need:
                 assert launches[name] > 0, (arch, kind, name, launches)
             for name, n in launches.items():
@@ -1516,24 +1764,29 @@ def phase_families():
             if arch in COBATCH_FAMILIES and not page:
                 cob = _family_cobatch(eng, prompts)
             del eng
-        assert streams["paged"] == streams["dense"], \
-            f"{arch}: paged streams != dense streams"
+        if is_mla:
+            refused = _mla_refusals(cfg, params, dcfg, dparams)
+        else:
+            assert streams["paged"] == streams["dense"], \
+                f"{arch}: paged streams != dense streams"
         g = torch.Generator(device=dev).manual_seed(7)
-        heads = {(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
-                 (dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim)}
-        kernels = {}
+        heads = {(dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim)}
+        if not is_mla:
+            heads.add((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim))
+        kernels = _family_mla_cases(g) if is_mla else {}
         for h in sorted(heads):
             for name, cases in _family_attention_cases(h, g).items():
                 kernels.setdefault(name, []).extend(cases)
         kernels["linear_rows"] = _family_linear_cases(cfg, dcfg, g)
-        is_moe = any(b.ffn == FFN_MOE for b in cfg.pattern)
+        is_moe = any(b.ffn == FFN_MOE for b in cfg.layer_kinds)
         # the bytes one target forward reads: every weight but the
         # embedding (a MoE layer's every expert: the batched product reads
         # all E weight slices, filled or not)
         wbytes = 2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
         row = {"phase": "families", "model": cfg.name, "arch": arch,
                "reduced": reduced, "layers": cfg.num_layers,
-               "ffn": sorted({b.ffn for b in cfg.pattern}),
+               "ffn": sorted({b.ffn for b in cfg.layer_kinds}),
+               "mixers": sorted({b.mixer for b in cfg.layer_kinds}),
                "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
                "draft_heads": [dcfg.num_heads, dcfg.num_kv_heads,
                                dcfg.head_dim],
@@ -1542,13 +1795,14 @@ def phase_families():
                / 1e9,
                "active_params_B": cfg.active_param_count() / 1e9,
                "draft_params_B": eagle.draft_param_count(dcfg) / 1e9,
-               "init_s": init_s, "requests": len(prompts),
+               "init_s": init_s, "init_peak_GB": init_peak,
+               "requests": len(prompts),
                "prompt_lens": [len(p) for p in prompts],
                "new_tokens": FAMILY["NEW"],
                "target_read_GB": wbytes / 1e9,
                "verify_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
-               "dense": serves["dense"], "paged": serves["paged"],
-               "paged_streams_equal_dense": True,
+               "dense": serves["dense"], "paged": serves.get("paged"),
+               "paged_streams_equal_dense": None if is_mla else True,
                "tokens_per_s": serves["dense"]["tokens_per_s"],
                "superstep_ms": serves["dense"]["superstep_ms_median"],
                "prefill_ms": statistics.median(serves["dense"]["prefill_ms"]),
@@ -1557,6 +1811,10 @@ def phase_families():
                "kernels": kernels}
         if is_moe:
             row["moe"] = _moe_repeatable(cfg, params, g)
+        if is_mla:
+            row["refused"] = refused
+            row["groups"] = [[n, len(p), r] for n, p, r in
+                             T.model_groups(cfg)]
         if arch in COBATCH_FAMILIES:
             row["cobatch"] = cob
         row["seconds"] = time.perf_counter() - t_start
@@ -1566,6 +1824,10 @@ def phase_families():
             assert cob["verdict"] == "none", \
                 f"{arch}: {cob['verdict']} departs with the refill batch"
             assert not cob["departing_alone"], cob["departing_alone"]
+        if is_mla:
+            # the prologue has no MoE layer: its rows must not depart
+            assert not cob["verdict"].startswith("pre."), cob
+            assert "pre" not in cob["departing_alone_groups"], cob
         del params, dparams
         _free()
     emit({"phase": "families", "step": "total", "launches": total})
@@ -1603,7 +1865,7 @@ SHIFT_KINDS_OF = {
     "verify_attention_tree": ("tree",),
     "verify_attention_paged_tree": ("tree_paged",), "extract_pack": (),
     "linear_rows": (), "flash_attention_bwd": (), "threefry2x32": (),
-    "categorical_rows": ()}
+    "categorical_rows": (), "mla_attention": ("mla4", "mla1", "mla128")}
 
 # glm4-9b's (name, K, N) of the prefill's products
 LINEAR_KN = (("k_proj", 4096, 256), ("q_proj/o_proj", 4096, 4096),
@@ -2047,11 +2309,15 @@ def _pad_shift_equal(kinds) -> bool:
     """One lane's prompt (150 rows, glm4-9b heads, bf16) at pads 0, 5,
     17, 31, 32, 100 of batch rows 0 and 40 wider, beside other lanes:
     its rows of each kernel must be equal bit for bit."""
-    from repro_torch.obs.cobatch import lane_inputs, pad_shift_departure
+    from repro_torch.obs.cobatch import (lane_inputs, mla_lane_inputs,
+                                         pad_shift_departure)
+    dev = torch.device("cuda")
     lane = lane_inputs(150, GLM["HQ"], GLM["HK"], GLM["D"], torch.bfloat16,
-                       torch.device("cuda"), 81)
+                       dev, 81)
+    mla_lane = mla_lane_inputs(150, MLA["H"], torch.bfloat16, dev, 81)
     for kind in kinds:
-        moved = pad_shift_departure(kind, lane, extras=(0, 40))
+        lane_of = mla_lane if kind.startswith("mla") else lane
+        moved = pad_shift_departure(kind, lane_of, extras=(0, 40))
         assert moved is None, \
             f"{kind}: a lane's rows moved with its pad at (pad, +) {moved}"
     return True
@@ -2394,10 +2660,12 @@ def _kernel_fns():
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_paged)
     from repro_torch.kernels.linear_rows.ops import linear_rows
+    from repro_torch.kernels.mla_attn.ops import mla_attention
     from repro_torch.kernels.sample.ops import categorical_rows, threefry2x32
     from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                      verify_attention_paged)
     return {"flash_attention": flash_attention,
+            "mla_attention": mla_attention,
             "threefry2x32": threefry2x32,
             "categorical_rows": categorical_rows,
             "verify_attention": verify_attention,
@@ -2462,9 +2730,13 @@ def _timed_serve(eng, reqs):
         if hasattr(fn, "tree_launches"):
             fn.tree_launches = 0
     fns["verify_attention"].launches_at_t.clear()
+    fns["flash_attention"].launches_at_dims.clear()
     eng.serve_stream(iter(reqs))
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in fns.items()}
+    # the prefill at MLA's (192, 128), among flash_attention's launches
+    launches[SPLIT_DIMS_KEY] = fns["flash_attention"].launches_at_dims[
+        (MLA["DQK"], MLA["DV"])]
     for name in ("verify_attention", "verify_attention_paged"):
         launches[name + "_tree"] = fns[name].tree_launches
     launches["verify_attention_by_t"] = dict(
@@ -4296,10 +4568,11 @@ def _device_classes(events, per: float = 1.0) -> dict:
 
 
 # the profile phase's new tokens a request: the first token and one
-# superstep, of which 2 rounds decode (17, two supersteps, until the
+# superstep, of which 1 round decodes (17, two supersteps, until the
 # sampled phases needed the time; 9, 8 rounds, until the fleet phase
-# did: a profile's seconds follow its launches)
-PROFILE_NEW = 3
+# did; 3, 2 rounds, until the families phase took deepseek-v3-671b: a
+# profile's seconds follow its launches, ~4 400 a glm4-9b round)
+PROFILE_NEW = 2
 # each profile's seconds (the serve, the profiler's processing, the
 # phase's reading), for the total line
 PROFILE_S = {}
@@ -4392,13 +4665,25 @@ def main():
           "overload_serve_s": round(overload_s, 1),
           "tide_s": round(tide_s, 1), "fleet_s": round(fleet_s, 1),
           "profile_s": PROFILE_S})
+    # MLA's kernels run on the families phase's deepseek-v3-671b serve, the
+    # only main path that reaches them (its counts zeroed just before it)
+    launches["mla_attention"] = families["mla_attention"]
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "flash_attention":
+            row["split_dims_launches"] = families[SPLIT_DIMS_KEY]
+            assert row["split_dims_launches"] > 0, "no (192, 128) prefill"
         row["launch_phase_launches"] = launch.get(row["name"], 0)
         row["chunked_serve_launches"] = chunked.get(row["name"], 0)
         row["overload_serve_launches"] = overload.get(row["name"], 0)
         row["families_launches"] = families.get(row["name"], 0)
         assert row["launches"] > 0, f"{row['name']} had no main-path launch"
+    emit({"split_dims_case": {
+        "name": "flash_attention (192, 128)",
+        "launches": rows[0]["split_dims_launches"],
+        **{k: rows[0]["split_dims_case"][k] for k in (
+            "max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}}})
     emit({"kernels": [{k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",

@@ -580,7 +580,8 @@ scatter_rows = eagle.scatter_batch_rows
 def pad_target_cache(cache, max_len: Optional[int]):
     """Zero-pad a staging target cache, made at a chunked refill's
     padded prompt width, out to the live cache's ``max_len`` positions
-    (the layer leaves' axis 2: (repeats, R, width, Hk, D)).
+    (the layer leaves' axis 2: (repeats, R, width, Hk, D), or an MLA
+    layer's (repeats, R, width, R_lat) and (repeats, R, width, Dr)).
 
     The staging cache stays at prompt width while the pipeline runs, so
     a continuation chunk attends over the key width the one-shot prefill
@@ -605,7 +606,7 @@ def pad_target_cache(cache, max_len: Optional[int]):
                     raise ValueError(f"staging leaf {tuple(t.shape)} is "
                                      f"wider than max_len {max_len}")
                 out[k][pos][leaf] = torch.nn.functional.pad(
-                    t, (0, 0, 0, 0, 0, max_len - t.shape[2]))
+                    t, (0, 0) * (t.dim() - 3) + (0, max_len - t.shape[2]))
     return out
 
 

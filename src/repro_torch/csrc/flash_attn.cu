@@ -32,6 +32,16 @@
 //     positions at G = 16, and the tile is read ~S/8 = 64 times, through
 //     cp.async, double-buffered, into shared memory padded against bank
 //     conflicts.
+// The value width Dv may differ from the query/key width D only at (D,
+// Dv) = (192, 128) in bfloat16: the expanded prefill of DeepSeek's
+// multi-head latent attention (src/repro/models/mla.py:66-107), q/k
+// (B, S, 128, 192) and v (B, S, 128, 128), whose k_rope part is shared
+// by the heads and broadcast before the call.  The scale stays
+// 1/sqrt(D), MLA's 1/sqrt(qk_nope + qk_rope).  What bounds it at B 8, S
+// 512, 128 heads: ~0.67 GB of q, k, v and out (every head its own k and
+// v, the expanded form), 0.20 ms at 3.35 TB/s, against ~86 GFLOP of
+// causal products (0.087 ms at 989 TFLOP/s): the bytes.
+//
 // Left for a later design: wgmma from shared memory and TMA loads with a
 // producer warp (the card's full tensor-core rate needs them), a larger
 // row tile (128 rows halves the K/V re-reads again), and a persistent
@@ -46,7 +56,7 @@
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 const int* pad, void* out, float* lse,
                                 int B, int S, int Hq, int Hk, int D,
-                                int causal, int window, int dtype,
+                                int Dv, int causal, int window, int dtype,
                                 void* stream) {
   repro::AttnArgs a;
   a.q = q;
@@ -67,7 +77,8 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
   a.scale = 1.0f / sqrtf((float)D);
   a.lse = lse;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return repro::launch_mma_rows<false>(a, D, st);
-  if (dtype == 0) return repro::launch_attn_rows<false>(a, D, 0, st);
+  if (dtype == 1) return repro::launch_mma_rows<false>(a, D, st, Dv);
+  if (dtype == 0 && Dv == D)
+    return repro::launch_attn_rows<false>(a, D, 0, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,16 @@
 // positions; here as per-row key ranges); a row with no visible key
 // writes zeros.
 //
+// Value width.  V (and the output) may be narrower than Q and K: DV
+// apart from the query/key width D, for the expanded form of DeepSeek's
+// multi-head latent attention (models/mla.py), whose prefill attends at
+// q/k 192 (qk_nope 128 + qk_rope 64) and v 128 over 128 heads, scale
+// 1/sqrt(192).  Only that pair is instantiated apart, for the dense
+// chain (flash_attn.cu); every other launch has DV = D and the code it
+// had before the split (the K and V tiles loaded by one loop).  At (192,
+// 128) the staging is (64 * 200 + 2 * 64 * (200 + 136)) * 2 = 111,616
+// bytes, one block per SM.
+//
 // Work split.  One block of four warps per (row tile, kv head, lane).  A
 // row tile is kPfRows = 64 (query position t, query head g) rows of one
 // kv head, t-major and g-minor as in attn_rows.cuh, so at G = Hq / Hk =
@@ -95,28 +105,35 @@ constexpr int kPfRows = 16 * kPfWarps;   // rows per block, 16 per warp
 constexpr int kPfKeys = 64;              // keys per K/V tile
 constexpr int kPfPadE = 8;               // row padding, elements
 
-template <int D>
+template <int D, int DV = D>
 constexpr int prefill_smem_bytes() {
-  return (kPfRows + 4 * kPfKeys) * (D + kPfPadE) * (int)sizeof(__nv_bfloat16);
+  return (kPfRows * (D + kPfPadE) + 2 * kPfKeys * (D + DV + 2 * kPfPadE)) *
+         (int)sizeof(__nv_bfloat16);
 }
 
-template <int D, bool Paged, bool Tree>
+template <int D, bool Paged, bool Tree, int DV = D>
 __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = D + kPfPadE;          // shared row stride, elements
+  constexpr int LDV = DV + kPfPadE;        // the V rows' stride
   constexpr int CH = D / 8;                // 16-byte chunks per row
+  constexpr int CHV = DV / 8;              // ... per V row
   constexpr int KD = D / 16;               // k16 steps over the head dim
-  constexpr int ND = D / 8;                // n8 tiles over the head dim
+  constexpr int ND = DV / 8;               // n8 tiles over the value dim
   constexpr int NK = kPfKeys / 8;          // n8 tiles over a key tile
   constexpr int kThreads = kPfWarps * 32;
   constexpr int kLoads = kPfKeys * CH / kThreads;   // = kPfRows * CH / kThreads
+  constexpr int kLoadsV = kPfKeys * CHV / kThreads;
   static_assert(kPfRows == kPfKeys && kLoads * kThreads == kPfKeys * CH,
-                "one load loop shape serves the Q and the K/V tiles");
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+                "one load loop shape serves the Q and the K tiles");
+  static_assert(kLoadsV * kThreads == kPfKeys * CHV, "V tile loads");
+  static_assert(D % 16 == 0 && DV % 16 == 0,
+                "head dims must be multiples of 16");
 
   extern __shared__ __align__(16) unsigned char pf_smem[];
   bf16* qs = reinterpret_cast<bf16*>(pf_smem);     // [kPfRows][LD]
-  bf16* kvs = qs + kPfRows * LD;                   // [2][K, V][kPfKeys][LD]
+  // [2][K [kPfKeys][LD], V [kPfKeys][LDV]]
+  bf16* kvs = qs + kPfRows * LD;
 
   const int G = a.Hq / a.Hk;
   const int nrows = a.T * G;
@@ -210,21 +227,44 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) 
 
   auto load_kv = [&](int j, int stage) {
     const int k0 = k_first + j * kPfKeys;
-    bf16* ks = kvs + stage * 2 * kPfKeys * LD;
+    bf16* ks = kvs + stage * kPfKeys * (LD + LDV);
     bf16* vs = ks + kPfKeys * LD;
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int c = threadIdx.x + u * kThreads;
-      const int jj = c / CH, d0 = (c % CH) * 8, kp = k0 + jj;
-      bf16* kd = ks + jj * LD + d0;
-      bf16* vd = vs + jj * LD + d0;
-      if (kp >= kv_lo && kp <= kv_hi) {
-        const size_t off = kv_row<Paged>(a, b, kp, hk) * D + d0;
-        cp_async16(kd, kc + off);
-        cp_async16(vd, vc + off);
-      } else {
-        *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
+      for (int u = 0; u < kLoads; ++u) {
+        const int c = threadIdx.x + u * kThreads;
+        const int jj = c / CH, d0 = (c % CH) * 8, kp = k0 + jj;
+        bf16* kd = ks + jj * LD + d0;
+        bf16* vd = vs + jj * LD + d0;
+        if (kp >= kv_lo && kp <= kv_hi) {
+          const size_t off = kv_row<Paged>(a, b, kp, hk) * D + d0;
+          cp_async16(kd, kc + off);
+          cp_async16(vd, vc + off);
+        } else {
+          *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int c = threadIdx.x + u * kThreads;
+        const int jj = c / CH, d0 = (c % CH) * 8, kp = k0 + jj;
+        bf16* kd = ks + jj * LD + d0;
+        if (kp >= kv_lo && kp <= kv_hi)
+          cp_async16(kd, kc + kv_row<Paged>(a, b, kp, hk) * D + d0);
+        else
+          *reinterpret_cast<uint4*>(kd) = make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsV; ++u) {
+        const int c = threadIdx.x + u * kThreads;
+        const int jj = c / CHV, d0 = (c % CHV) * 8, kp = k0 + jj;
+        bf16* vd = vs + jj * LDV + d0;
+        if (kp >= kv_lo && kp <= kv_hi)
+          cp_async16(vd, vc + kv_row<Paged>(a, b, kp, hk) * DV + d0);
+        else
+          *reinterpret_cast<uint4*>(vd) = make_uint4(0, 0, 0, 0);
       }
     }
   };
@@ -257,7 +297,7 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) 
     }
     const int k0 = k_first + j * kPfKeys;
     if (k0 <= w_hi && k0 + kPfKeys - 1 >= w_lo) {   // warp-uniform
-      const bf16* ks = kvs + (j & 1) * 2 * kPfKeys * LD;
+      const bf16* ks = kvs + (j & 1) * kPfKeys * (LD + LDV);
       const bf16* vs = ks + kPfKeys * LD;
 
       // S = Q K^T: s[n] is keys 8n..8n+7 of the tile
@@ -343,7 +383,7 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) 
 #pragma unroll
         for (int dn = 0; dn < ND / 2; ++dn) {
           uint32_t vb[4];
-          ldsm_x4_trans(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+          ldsm_x4_trans(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV +
                                 dn * 16 + ((lane >> 4) & 1) * 8);
           mma_bf16(acc[2 * dn], ph, vb[0], vb[1]);
           mma_bf16(acc[2 * dn], pl, vb[0], vb[1]);
@@ -366,7 +406,7 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) 
     const int r = row0 + warp * 16 + gid + 8 * i;
     const int t = r / G, h = hk * G + r % G;
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
-    bf16* dst = o + (((size_t)b * a.T + t) * a.Hq + h) * D + 2 * tig;
+    bf16* dst = o + (((size_t)b * a.T + t) * a.Hq + h) * DV + 2 * tig;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) =
@@ -380,13 +420,15 @@ __global__ void __launch_bounds__(kPfWarps * 32, 2) mma_rows_kernel(AttnArgs a) 
 }
 
 // Launch the loop: Tree = true is the tree mode (tree_w > 0, decode
-// only), false the chain.  Returns a cudaError_t as int:
-// cudaErrorInvalidValue for arguments it does not take,
+// only), false the chain.  v_dim: the value width (0: head_dim); apart
+// from head_dim only (192, 128), dense chain.  Returns a cudaError_t as
+// int: cudaErrorInvalidValue for arguments it does not take,
 // cudaErrorInvalidConfiguration when the card's opt-in shared memory per
-// block is below what the head dim needs.
+// block is below what the head dims need.
 template <bool Paged, bool Tree = false>
 inline int launch_mma_rows(const AttnArgs& a, int head_dim,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, int v_dim = 0) {
+  if (v_dim == 0) v_dim = head_dim;
   if (a.Hk <= 0 || a.Hq % a.Hk != 0 || a.T <= 0 || a.B <= 0)
     return (int)cudaErrorInvalidValue;
   if (Paged && (a.tbl == nullptr || a.page <= 0 || a.n_tbl <= 0 ||
@@ -404,20 +446,23 @@ inline int launch_mma_rows(const AttnArgs& a, int head_dim,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-#define REPRO_MMA_CASE(DD)                                                      \
+#define REPRO_MMA_CASE(DD, DVV)                                                 \
   {                                                                             \
-    constexpr int bytes = prefill_smem_bytes<DD>();                             \
+    constexpr int bytes = prefill_smem_bytes<DD, DVV>();                        \
     if (bytes > optin) return (int)cudaErrorInvalidConfiguration;               \
-    err = cudaFuncSetAttribute(mma_rows_kernel<DD, Paged, Tree>,                \
+    err = cudaFuncSetAttribute(mma_rows_kernel<DD, Paged, Tree, DVV>,           \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,     \
                                bytes);                                          \
     if (err != cudaSuccess) return (int)err;                                    \
-    mma_rows_kernel<DD, Paged, Tree><<<grid, block, bytes, stream>>>(a);        \
+    mma_rows_kernel<DD, Paged, Tree, DVV><<<grid, block, bytes, stream>>>(a);   \
     return (int)cudaGetLastError();                                             \
   }
-  if (head_dim == 32) REPRO_MMA_CASE(32)
-  if (head_dim == 64) REPRO_MMA_CASE(64)
-  if (head_dim == 128) REPRO_MMA_CASE(128)
+  if (head_dim == 32 && v_dim == 32) REPRO_MMA_CASE(32, 32)
+  if (head_dim == 64 && v_dim == 64) REPRO_MMA_CASE(64, 64)
+  if (head_dim == 128 && v_dim == 128) REPRO_MMA_CASE(128, 128)
+  if constexpr (!Paged && !Tree) {
+    if (head_dim == 192 && v_dim == 128) REPRO_MMA_CASE(192, 128)
+  }
 #undef REPRO_MMA_CASE
   return (int)cudaErrorInvalidValue;
 }

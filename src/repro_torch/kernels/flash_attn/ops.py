@@ -7,10 +7,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
-from repro_torch.kernels import (HEAD_DIMS, check_pools, count,
+from repro_torch.kernels import (HEAD_DIMS, check_pools, count, count_at,
                                  dtype_code, lane_ints, on_cpu, require,
                                  stream_of)
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
@@ -19,22 +20,31 @@ from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_ref)
 
 
+# (query/key width, value width) pairs the CUDA kernel takes apart from
+# HEAD_DIMS: DeepSeek's expanded MLA prefill (qk_nope 128 + qk_rope 64,
+# v 128), bfloat16 only
+SPLIT_DIMS = ((192, 128),)
+
+
 def flash_attention(q, k, v, pad=None, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     return_lse: bool = False):
-    """q: (B, S, Hq, D); k, v: (B, S, Hk, D); pad: optional (B,) left-pad
-    widths (keys before pad[b] are invisible to lane b; rows before it
-    are zeros).  Returns (B, S, Hq, D) in q.dtype; with ``return_lse``
-    also each row's log-sum-exp of its scaled scores, (B, S, Hq) float32
-    (-inf for a row that sees no key), which the backward reads.
+    """q: (B, S, Hq, D); k: (B, S, Hk, D); v: (B, S, Hk, Dv), Dv = D or,
+    for the MLA prefill, (D, Dv) in ``SPLIT_DIMS``; pad: optional (B,)
+    left-pad widths (keys before pad[b] are invisible to lane b; rows
+    before it are zeros).  The scores are scaled by 1/sqrt(D).  Returns
+    (B, S, Hq, Dv) in q.dtype; with ``return_lse`` also each row's
+    log-sum-exp of its scaled scores, (B, S, Hq) float32 (-inf for a row
+    that sees no key), which the backward reads.
 
     CPU tensors take ``flash_attention_ref``; CUDA tensors launch
     ``csrc/flash_attn.cu`` or raise: bfloat16 runs on tensor cores
     (``csrc/prefill_rows.cuh``), float32 on the FMA loop
-    (``csrc/attn_rows.cuh``).  The LSE is stored by the same launch,
-    behind a pointer that serving calls leave null, so it changes no
-    output bit.  ``flash_attention.launches`` counts the kernel
-    launches."""
+    (``csrc/attn_rows.cuh``; not at a ``SPLIT_DIMS`` pair).  The LSE is
+    stored by the same launch, behind a pointer that serving calls leave
+    null, so it changes no output bit.  ``flash_attention.launches``
+    counts the kernel launches, ``flash_attention.launches_at_dims`` (a
+    ``Counter``) the launches by (D, Dv)."""
     if on_cpu(q, k, v):
         out = flash_attention_ref(q, k, v, pad, causal=causal,
                                   window=window, softcap=softcap)
@@ -48,18 +58,29 @@ def flash_attention(q, k, v, pad=None, *, causal: bool = True,
         raise NotImplementedError("the CUDA prefill kernel has no logit "
                                   "softcap (no Pallas kernel has one)")
     b, s, hq, d = q.shape
-    require(k.shape[:2] == (b, s) and k.shape == v.shape and k.dim() == 4,
+    require(k.shape[:2] == (b, s) and k.dim() == v.dim() == 4
+            and k.shape[:3] == v.shape[:3],
             f"k/v {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
-    hk = k.shape[2]
-    require(k.shape[3] == d and hq % hk == 0 and d in HEAD_DIMS,
-            f"heads {hq}/{hk}, head_dim {d} not supported")
+    hk, dv = k.shape[2], v.shape[3]
+    require(k.shape[3] == d and hq % hk == 0,
+            f"heads {hq}/{hk}, q/k widths {d}/{k.shape[3]} not supported")
+    if (d, dv) in SPLIT_DIMS:
+        require(q.dtype == torch.bfloat16,
+                f"the prefill kernel takes (D, Dv) = {(d, dv)} in bfloat16 "
+                f"only, got {q.dtype} (ROADMAP queue 1 item 8: the MLA "
+                "training slice adds the REDUCED fp32 dims)")
+    else:
+        require(dv == d and d in HEAD_DIMS,
+                f"head dims (D, Dv) = {(d, dv)} not supported (the kernel "
+                f"takes D = Dv in {HEAD_DIMS} and {SPLIT_DIMS} in bf16; "
+                "ROADMAP queue 1 item 8)")
     require(q.dtype == k.dtype == v.dtype, "q/k/v dtypes differ")
     require(all(t.is_contiguous() for t in (q, k, v)), "q/k/v must be contiguous")
     require(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
             "q/k/v must be 16-byte aligned (the kernel loads 16-byte vectors)")
     code = dtype_code(q)
     pad_t = lane_ints(pad, b, q.device)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s, hq, dv))
     lse = (torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     from repro_torch.kernels.build import check, library
@@ -67,13 +88,16 @@ def flash_attention(q, k, v, pad=None, *, causal: bool = True,
         err = library().repro_flash_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_t.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(), b, s,
-            hq, hk, d, int(bool(causal)), int(window), code, stream_of(q))
+            hq, hk, d, dv, int(bool(causal)), int(window), code,
+            stream_of(q))
     check(err, "flash_attention")
     count(flash_attention)
+    count_at(flash_attention, "launches_at_dims", (d, dv))
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_at_dims = Counter()
 
 
 def flash_attention_paged(q, k_pool, v_pool, tbl, pad=None, *,
@@ -119,7 +143,8 @@ def flash_attention_paged(q, k_pool, v_pool, tbl, pad=None, *,
 flash_attention_paged.launches = 0
 
 
-def _bwd_refusal(q, k, pad=None, causal=True, window=0, softcap=0.0):
+def _bwd_refusal(q, k, pad=None, causal=True, window=0, softcap=0.0,
+                 v=None):
     """Why the backward kernel cannot serve this call, or None."""
     if pad is not None:
         return "a left pad"
@@ -131,6 +156,10 @@ def _bwd_refusal(q, k, pad=None, causal=True, window=0, softcap=0.0):
         return "a logit softcap"
     if q.shape[-1] not in HEAD_DIMS:
         return f"head_dim {q.shape[-1]} (the kernel takes {HEAD_DIMS})"
+    if v is not None and v.shape[-1] != q.shape[-1]:
+        return (f"a value width {v.shape[-1]} apart from the query width "
+                f"{q.shape[-1]} (ROADMAP queue 1 item 8: the MLA training "
+                "forward and its backward kernel)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         return f"dtype {q.dtype}"
     if q.shape[2] % k.shape[2]:
@@ -209,7 +238,7 @@ def flash_attention_bwd(q, k, v, o, do, lse):
     order; float32 on the FMA loop.  No atomics, so two calls give equal
     results.  ``flash_attention_bwd.launches`` counts the wrapper's
     launches."""
-    why = _bwd_refusal(q, k)
+    why = _bwd_refusal(q, k, v=v)
     if why:
         raise NotImplementedError(f"the attention backward kernel has no "
                                   f"{why}")
@@ -287,7 +316,7 @@ def attention_train(q, k, v, pad=None, *, causal: bool = True,
     ``HEAD_DIMS``) instead of falling back to anything; through
     ``flash_attention`` alone otherwise."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        why = _bwd_refusal(q, k, pad, causal, window, softcap)
+        why = _bwd_refusal(q, k, pad, causal, window, softcap, v)
         if why:
             raise NotImplementedError(
                 f"no gradient of the prefill attention with {why}: the "

@@ -37,8 +37,9 @@ def prefill_mask(b: int, s: int, pad=None, *, causal: bool = True,
 
 def flash_attention_ref(q, k, v, pad=None, *, causal: bool = True,
                         window: int = 0, softcap: float = 0.0):
-    """q: (B, S, Hq, D); k, v: (B, S, Hk, D); pad: optional (B,) int.
-    Returns (B, S, Hq, D) in q.dtype; math in float64."""
+    """q: (B, S, Hq, D); k: (B, S, Hk, D); v: (B, S, Hk, Dv) (Dv apart
+    from D for the expanded MLA prefill); pad: optional (B,) int.  Scale
+    1/sqrt(D).  Returns (B, S, Hq, Dv) in q.dtype; math in float64."""
     b, s = q.shape[:2]
     mask = prefill_mask(b, s, pad, causal=causal, window=window,
                         device=q.device)

@@ -451,9 +451,11 @@ def main(argv=None, *, device=None):
     from repro_torch.models import transformer as T
     from repro_torch.training.trainer import pretrain_target
 
-    device = resolve_device(device)
     cfg = configs.get(args.arch) if args.arch == "tide-tiny" \
         else configs.get_reduced(args.arch)
+    if args.pretrain_steps > 0:
+        T.train_check(cfg)
+    device = resolve_device(device)
     print(f"serving {cfg.name} ({cfg.param_count()/1e6:.2f}M params) "
           f"on {device}")
     params = T.init(cfg, 0, device=device)

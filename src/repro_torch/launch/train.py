@@ -90,8 +90,9 @@ def main(argv=None, *, device=None) -> List[dict]:
     import repro_torch.configs as configs
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import resolve_device
-    device = resolve_device(device)
     cfg = configs.get_reduced(args.arch)
+    T.train_check(cfg)
+    device = resolve_device(device)
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.2f}M params "
           f"on {device}")
     params = T.init(cfg, 0, device=device)

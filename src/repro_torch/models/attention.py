@@ -56,8 +56,9 @@ def apply_rope(x, positions, theta: float):
 def attend(q, k, v, mask, *, softcap: float = 0.0):
     """Reference masked attention, float64 throughout.
 
-    q: (B, T, Hq, D); k, v: (B, S, Hk, D); mask: broadcastable to
-    (B, Hk, G, T, S).  Returns (B, T, Hq, D) in q.dtype.  Both products
+    q: (B, T, Hq, D); k: (B, S, Hk, D); v: (B, S, Hk, Dv), Dv = D but
+    for the expanded MLA prefill (``models/mla.py``); mask: broadcastable
+    to (B, Hk, G, T, S).  Returns (B, T, Hq, Dv) in q.dtype.  Both products
     and the softmax between them run in float64, which no BLAS path
     computes in reduced precision: the result does not depend on
     ``torch.get_float32_matmul_precision()`` or on the fp32 kernel a
@@ -83,7 +84,7 @@ def attend(q, k, v, mask, *, softcap: float = 0.0):
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom > 0, denom, torch.ones_like(denom))
     out = torch.einsum("bkgts,bskd->btkgd", p, v.double())
-    return out.reshape(b, t, hq, d).to(q.dtype)
+    return out.reshape(b, t, hq, v.shape[-1]).to(q.dtype)
 
 
 # --------------------------------------------------------- draft trees
@@ -144,10 +145,12 @@ def out_proj(params, o, linear=torch.matmul):
 
 
 def scatter_kv(cache, new, lengths, valid=None):
-    """Write ``new`` (B, T, Hk, D) into ``cache`` (B, Smax, Hk, D) at
+    """Write ``new`` (B, T, ...) into ``cache`` (B, Smax, ...) at
     positions lengths[b] + t, **in place** (the JAX version returns a new
     array that XLA writes into the donated buffer); rows where the
-    optional (B, T) ``valid`` is False are not written.
+    optional (B, T) ``valid`` is False are not written.  The rows are
+    (Hk, D) K/V rows or, for MLA (``models/mla.py``), (R,) and (Dr,)
+    latent rows.
 
     Writes past Smax are dropped, as JAX drops out-of-bounds scatter
     updates: such a row is redirected to position (p mod Smax) and
@@ -158,7 +161,7 @@ def scatter_kv(cache, new, lengths, valid=None):
     smax = cache.shape[1]
     pos = lengths[:, None].long() + torch.arange(t, device=cache.device)[None]
     valid = (pos < smax) if valid is None else (pos < smax) & valid
-    valid = valid[..., None, None]
+    valid = valid.reshape(valid.shape + (1,) * (new.dim() - 2))
     pos = pos % smax
     bidx = torch.arange(b, device=cache.device)[:, None].expand(b, t)
     rows = torch.where(valid, new.to(cache.dtype), cache[bidx, pos])

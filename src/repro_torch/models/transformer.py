@@ -1,13 +1,18 @@
-"""Target model, attention-mixer path (port of the ATTN-group part of
-``repro/models/transformer.py``).
+"""Target model, attention and latent-attention mixers (port of the ATTN
+and MLA parts of ``repro/models/transformer.py``).
 
 Parameters keep the JAX layout: each layer group holds stacked ``(L, ...)``
 leaves (``stack_specs``), and the forward passes loop over layers in
-Python where JAX scans.  The cache is the same nested dict of tensors as
-the reference's (``{"lengths", "pad", "body": {"pos0": {"k", "v"}}}``
-with ``(L, B, max_len, Hk, D)`` leaves).  JAX's buffer donation becomes
-in-place updates: ``decode_step`` writes the new block's K/V into the
-live cache tensors and returns the same tensors.
+Python where JAX scans.  The groups are JAX's: a config with a
+``prologue`` (DeepSeek-V3's dense layers) has a ``pre`` group of its
+first block repeated ``len(prologue)`` times before ``body``, and the
+EAGLE-3 capture indices run across both.  The cache is the same nested
+dict of tensors as the reference's (``{"lengths", "pad", "body": {"pos0":
+{"k", "v"}}}`` with ``(L, B, max_len, Hk, D)`` leaves; an MLA layer's
+entry is ``{"ckv", "kr"}``, ``(L, B, max_len, R)`` and ``(L, B, max_len,
+Dr)``).  JAX's buffer donation becomes in-place updates: ``decode_step``
+writes the new block's K/V (or latents) into the live cache tensors and
+returns the same tensors.
 
 Paged caches (``init_cache(..., page_size=P, num_pages=NP)``) hold
 ``(L, NP + 1, P, Hk, D)`` page pools and one ``page_tbl`` (B, max_len // P)
@@ -17,14 +22,18 @@ straight into the pools (no dense K/V is built).
 
 Entry points: ``param_specs`` / ``init``, ``prefill``, ``decode_step``
 (chain or draft tree), ``commit_cache``, ``init_cache``, ``paged_check``,
-``tree_check``, and ``forward_train`` (the teacher-forced loss of the
-target trainer, ``training/trainer.py``).  Attention mixers (``ATTN``,
-``ATTN_SW``) with the SwiGLU, GELU or MoE FFN (``models/moe.py``, its
-weights under ``moe``) are ported; other block kinds raise
-``NotImplementedError``.  A MoE layer's expert capacity comes from the
-token count of the call (JAX's ``_capacity``), so no shape choice of the
-port (``last_only``, the paged prefill) changes the rows a MoE layer
-sees: the head's rows are picked after the last layer.
+``tree_check``, ``train_check``, and ``forward_train`` (the
+teacher-forced loss of the target trainer, ``training/trainer.py``).
+Attention mixers (``ATTN``, ``ATTN_SW``) and multi-head latent attention
+(``MLA``, ``models/mla.py``) with the SwiGLU, GELU or MoE FFN
+(``models/moe.py``, its weights under ``moe``) are ported; other block
+kinds raise ``NotImplementedError``.  MLA serves dense chain speculation
+only, as in JAX: paged KV and draft trees are refused with JAX's errors,
+and its training forward is not ported yet (``train_check``).  A MoE
+layer's expert capacity comes from the token count of the call (JAX's
+``_capacity``), so no shape choice of the port (``last_only``, the
+paged prefill) changes the rows a MoE layer sees: the head's rows are
+picked after the last layer.
 """
 from __future__ import annotations
 
@@ -36,9 +45,11 @@ import torch.utils.checkpoint
 from repro_torch.checkpoint import bridge
 from repro_torch.kernels.linear_rows.ops import linear_rows
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import (ATTN, ATTN_SW, FFN_GELU, FFN_MOE,
-                                       FFN_SWIGLU, BlockDef, ModelConfig)
+                                       FFN_SWIGLU, MLA, BlockDef,
+                                       ModelConfig)
 from repro_torch.models.layers import (LAYERS, embed, embed_specs, ffn,
                                        ffn_specs, head_specs, lm_head,
                                        rmsnorm, rmsnorm_specs)
@@ -48,22 +59,23 @@ from repro_torch.models.param import (ParamSpec, ParamTree, init_params,
 
 # ===================================================================== specs
 _FFNS = (FFN_SWIGLU, FFN_GELU, FFN_MOE)
+_MIXERS = (ATTN, ATTN_SW, MLA)
 
 
 def _check_block(blk: BlockDef):
-    if blk.mixer not in (ATTN, ATTN_SW) or blk.ffn not in _FFNS \
-            or blk.cross:
+    if blk.mixer not in _MIXERS or blk.ffn not in _FFNS or blk.cross:
         raise NotImplementedError(
-            f"block {blk} is not ported yet: the port runs attention "
-            "mixers with the SwiGLU, GELU or MoE FFN (ROADMAP queue 1 "
-            "item 8: the MLA, Mamba, RWKV-6 and cross-attention blocks)")
+            f"block {blk} is not ported yet: the port runs attention and "
+            "MLA mixers with the SwiGLU, GELU or MoE FFN (ROADMAP queue 1 "
+            "item 8: the Mamba, RWKV-6 and cross-attention blocks)")
 
 
 def layer_specs(cfg: ModelConfig, blk: BlockDef) -> dict:
     _check_block(blk)
     d = cfg.d_model
-    s = {"norm1": rmsnorm_specs(d), "mix": attn.attn_specs(cfg),
-         "norm2": rmsnorm_specs(d)}
+    mix = mla_mod.mla_specs(cfg) if blk.mixer == MLA \
+        else attn.attn_specs(cfg)
+    s = {"norm1": rmsnorm_specs(d), "mix": mix, "norm2": rmsnorm_specs(d)}
     if blk.ffn == FFN_MOE:
         s["moe"] = moe_mod.moe_specs(cfg)
     else:
@@ -78,15 +90,31 @@ def stack_specs(specs, n: int):
 
 
 def model_groups(cfg: ModelConfig) -> List[Tuple[str, Tuple[BlockDef, ...], int]]:
-    """Decoder groups as (name, pattern, repeats)."""
-    if cfg.prologue or cfg.encoder_layers or cfg.num_image_tokens:
+    """Decoder groups as (name, pattern, repeats): JAX's, a ``pre`` group
+    of the prologue's first block before ``body`` when there is one."""
+    if cfg.encoder_layers or cfg.num_image_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: prologue/encoder/image groups are not ported yet "
-            "(ROADMAP queue 1 item 8: the MLA prologue, cross-attention "
-            "and encoder groups)")
-    for blk in cfg.pattern:
-        _check_block(blk)
-    return [("body", cfg.pattern, cfg.num_pattern_repeats)]
+            f"{cfg.name}: encoder/image groups are not ported yet (ROADMAP "
+            "queue 1 item 8: the cross-attention and encoder groups)")
+    groups = []
+    if cfg.prologue:
+        groups.append(("pre", (cfg.prologue[0],), len(cfg.prologue)))
+    groups.append(("body", cfg.pattern, cfg.num_pattern_repeats))
+    for _, pattern, _ in groups:
+        for blk in pattern:
+            _check_block(blk)
+    return groups
+
+
+def _entry_shapes(cfg: ModelConfig, blk: BlockDef, batch: int,
+                  max_len: int) -> Dict[str, Tuple[int, ...]]:
+    """One layer's dense cache entry, leaf -> shape (JAX's
+    ``_entry_shape``): K/V rows for attention, the latents for MLA."""
+    if blk.mixer == MLA:
+        return {"ckv": (batch, max_len, cfg.kv_lora_rank),
+                "kr": (batch, max_len, cfg.qk_rope_head_dim)}
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": shape, "v": shape}
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -140,31 +168,49 @@ def apply_ffn(cfg: ModelConfig, blk: BlockDef, p, h, linear=torch.matmul,
 
 def apply_layer_prefill(cfg: ModelConfig, blk: BlockDef, p, x, positions,
                         pad, pools=None, tbl_rows=None, *, linear):
-    """Returns (x, (k, v), aux).  ``pools``/``tbl_rows``: the paged
-    prefill (``attention.self_attention_prefill``).  ``linear``: the
-    matrix product of the projections, the FFN and the router."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, kv = attn.self_attention_prefill(cfg, p["mix"], h, positions, pad,
-                                          pools=pools, tbl_rows=tbl_rows,
-                                          linear=linear)
-    x = x + out
-    h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    out2, aux = apply_ffn(cfg, blk, p, h2, linear)
-    return x + out2, kv, aux
-
-
-def apply_layer_decode(cfg: ModelConfig, blk: BlockDef, p, x, k_cache,
-                       v_cache, lengths, pad, page_tbl=None, tree=None,
-                       linear=torch.matmul):
-    """Writes this layer's new K/V into k_cache/v_cache (or, with
-    ``page_tbl``, its page pools) in place.  ``tree=(W, γ)``: the rows
-    are a flattened draft tree, scored under the tree-causal mask.
+    """Returns (x, cache entry, aux), the entry {"k", "v"} (B, S, Hk, D)
+    or, for MLA, {"ckv", "kr"} (B, S, R) and (B, S, Dr).
+    ``pools``/``tbl_rows``: the paged prefill
+    (``attention.self_attention_prefill``; attention mixers only).
     ``linear``: the matrix product of the projections, the FFN and the
     router."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, _ = attn.self_attention_decode(cfg, p["mix"], h, k_cache, v_cache,
-                                        lengths, pad, page_tbl=page_tbl,
-                                        tree=tree, linear=linear)
+    if blk.mixer == MLA:
+        out, (ckv, kr) = mla_mod.mla_prefill(cfg, p["mix"], h, positions,
+                                             pad, linear=linear)
+        entry = {"ckv": ckv, "kr": kr}
+    else:
+        out, (k, v) = attn.self_attention_prefill(
+            cfg, p["mix"], h, positions, pad, pools=pools,
+            tbl_rows=tbl_rows, linear=linear)
+        entry = {"k": k, "v": v}
+    x = x + out
+    h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    out2, aux = apply_ffn(cfg, blk, p, h2, linear)
+    return x + out2, entry, aux
+
+
+def apply_layer_decode(cfg: ModelConfig, blk: BlockDef, p, x, entry,
+                       lengths, pad, page_tbl=None, tree=None,
+                       linear=torch.matmul):
+    """``entry``: this layer's cache leaves, {"k", "v"} (B, Smax, Hk, D)
+    (with ``page_tbl``, its page pools) or, for MLA, {"ckv", "kr"};
+    the new block's K/V or latents are written into them in place.
+    ``tree=(W, γ)``: the rows are a flattened draft tree, scored under
+    the tree-causal mask (attention mixers only).  ``linear``: the
+    matrix product of the projections, the FFN and the router."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if blk.mixer == MLA:
+        if page_tbl is not None or tree is not None:
+            what = "tree speculation" if tree else "paged KV cache"
+            raise ValueError(f"{what} supports attention mixers only; "
+                             f"config has {blk.mixer!r}")
+        out, _ = mla_mod.mla_decode(cfg, p["mix"], h, entry["ckv"],
+                                    entry["kr"], lengths, pad, linear=linear)
+    else:
+        out, _ = attn.self_attention_decode(
+            cfg, p["mix"], h, entry["k"], entry["v"], lengths, pad,
+            page_tbl=page_tbl, tree=tree, linear=linear)
     x = x + out
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + apply_ffn(cfg, blk, p, h2, linear)[0]
@@ -175,7 +221,10 @@ def apply_layer_train(cfg: ModelConfig, blk: BlockDef, moe_impl: str, p, x):
     products through ``torch.matmul``, the attention through
     ``attention.self_attention_train`` (the prefill kernel storing its
     LSE, its gradient the backward kernel).  Returns (x, aux), aux a
-    0-dim fp32 tensor (0 for a dense FFN)."""
+    0-dim fp32 tensor (0 for a dense FFN).  An MLA block raises
+    (``train_check``)."""
+    if blk.mixer == MLA:
+        raise NotImplementedError(_MLA_TRAIN)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + attn.self_attention_train(cfg, p["mix"], h)
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
@@ -204,15 +253,14 @@ def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
     b, s = x.shape[:2]
     if s > max_len:
         raise ValueError(f"prefill len {s} > max_len {max_len}")
-    hk, hd = cfg.num_kv_heads, cfg.head_dim
     cache_group = None
     if pool_group is None:
-        cache_group = {}
-        for pi in range(len(pattern)):
-            shape = (repeats, b, max_len, hk, hd)
-            cache_group[f"pos{pi}"] = {
-                "k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
+        cache_group = {
+            f"pos{pi}": {leaf: torch.zeros((repeats,) + shape,
+                                           dtype=x.dtype, device=x.device)
+                         for leaf, shape in _entry_shapes(
+                             cfg, blk, b, max_len).items()}
+            for pi, blk in enumerate(pattern)}
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
     aux = None
     for i in range(repeats):
@@ -221,15 +269,14 @@ def run_group_prefill(cfg, group_params, pattern, repeats, x, positions,
             if pool_group is not None:
                 entry = pool_group[f"pos{pi}"]
                 pools = (entry["k"][i], entry["v"][i])
-            x, (k, v), a = apply_layer_prefill(
+            x, new, a = apply_layer_prefill(
                 cfg, blk, per_pos[pi][i], x, positions, pad, pools,
                 tbl_rows, linear=linear_rows)
             if a is not None:
                 aux = a if aux is None else aux + a
             if cache_group is not None:
-                entry = cache_group[f"pos{pi}"]
-                entry["k"][i, :, :s] = k
-                entry["v"][i, :, :s] = v
+                for leaf, t in new.items():
+                    cache_group[f"pos{pi}"][leaf][i, :, :s] = t
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, cache_group, caps, aux
@@ -241,10 +288,10 @@ def run_group_decode(cfg, group_params, pattern, repeats, x, cache_group,
     per_pos = [_slices(group_params, repeats, pi) for pi in range(len(pattern))]
     for i in range(repeats):
         for pi, blk in enumerate(pattern):
-            entry = cache_group[f"pos{pi}"]
-            x = apply_layer_decode(cfg, blk, per_pos[pi][i], x,
-                                   entry["k"][i], entry["v"][i], lengths,
-                                   pad, page_tbl, tree, linear)
+            entry = {leaf: t[i] for leaf, t in
+                     cache_group[f"pos{pi}"].items()}
+            x = apply_layer_decode(cfg, blk, per_pos[pi][i], x, entry,
+                                   lengths, pad, page_tbl, tree, linear)
             caps = _update_caps(caps, cap_targets,
                                 base_idx + i * len(pattern) + pi, x)
     return x, caps
@@ -365,6 +412,20 @@ def commit_cache(cfg: ModelConfig, cache, n_accept):
 
 
 # ================================================================= training
+_MLA_TRAIN = ("the MLA training forward and its backward kernel are not "
+              "ported yet (ROADMAP queue 1 item 8)")
+
+
+def train_check(cfg: ModelConfig):
+    """Validate a training request (``forward_train``, the train CLI, the
+    serve CLI's target pretraining): an MLA block raises
+    ``NotImplementedError`` naming ROADMAP queue 1 item 8, before any
+    weight is made or any layer runs."""
+    for _, pattern, _ in model_groups(cfg):
+        if any(blk.mixer == MLA for blk in pattern):
+            raise NotImplementedError(f"{cfg.name}: {_MLA_TRAIN}")
+
+
 def forward_train(cfg: ModelConfig, params, batch, *, moe_impl: str = "sort",
                   remat: bool = True):
     """Teacher-forced LM loss (JAX ``models/transformer.py:428``).  batch:
@@ -376,7 +437,9 @@ def forward_train(cfg: ModelConfig, params, batch, *, moe_impl: str = "sort",
     ``jax.checkpoint`` does.  ``moe_impl``: the MoE layers' dispatch
     (``models/moe.py``).  Returns (loss, {"ce", "aux", "accuracy"}),
     0-dim fp32 tensors: the loss is ce + aux, aux the MoE layers' summed
-    load-balance loss (0 without one), the accuracy detached."""
+    load-balance loss (0 without one), the accuracy detached.  An MLA
+    config raises (``train_check``)."""
+    train_check(cfg)
     tokens, targets = batch["tokens"], batch["targets"].long()
     x = embed(params["embed"], tokens, cfg.act_dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -407,9 +470,19 @@ def forward_train(cfg: ModelConfig, params, batch, *, moe_impl: str = "sort",
     return ce + aux, {"ce": ce, "aux": aux, "accuracy": acc}
 
 
+def _attention_only(cfg: ModelConfig, what: str):
+    for _, pattern, _ in model_groups(cfg):
+        for blk in pattern:
+            if blk.mixer not in (ATTN, ATTN_SW):
+                raise ValueError(f"{what} supports attention mixers only; "
+                                 f"config has {blk.mixer!r}")
+
+
 def paged_check(cfg: ModelConfig, max_len: int, page_size: int):
     """Validate a paged-cache request: the lane window must tile into
-    whole pages (the port's mixers are all attention)."""
+    whole pages, and paging covers attention K/V pools only, so every
+    mixer must be ``ATTN``/``ATTN_SW`` (an MLA config raises JAX's
+    ``ValueError``)."""
     model_groups(cfg)
     if page_size <= 0:
         raise ValueError(f"page_size must be positive, got {page_size}")
@@ -417,13 +490,14 @@ def paged_check(cfg: ModelConfig, max_len: int, page_size: int):
         raise ValueError(
             f"max_len {max_len} must be a multiple of page_size "
             f"{page_size}")
+    _attention_only(cfg, "paged KV cache")
 
 
 def tree_check(cfg: ModelConfig):
     """Validate a tree-speculation request: the tree verify commits only
     the accepted root path, which needs per-position K/V rollback, so
-    attention mixers only (the port runs no other kind)."""
-    model_groups(cfg)
+    attention mixers only (an MLA config raises JAX's ``ValueError``)."""
+    _attention_only(cfg, "tree speculation")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -432,22 +506,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     leaves are page pools ``(repeats, num_pages + 1, page_size, Hk, D)``
     (page ``num_pages`` is the trash page) and ``page_tbl`` (batch,
     max_len // page_size) maps every entry to the trash page."""
-    hk, hd = cfg.num_kv_heads, cfg.head_dim
     cache: Dict[str, Any] = {
         "lengths": torch.zeros((batch,), dtype=torch.int32, device=device),
         "pad": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
-    shape = (batch, max_len, hk, hd)
     if page_size > 0:
         paged_check(cfg, max_len, page_size)
         cache["page_tbl"] = torch.full((batch, max_len // page_size),
                                        num_pages, dtype=torch.int32,
                                        device=device)
-        shape = (num_pages + 1, page_size, hk, hd)
+    pool = (num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
     for name, pattern, repeats in model_groups(cfg):
-        cache[name] = {
-            f"pos{pi}": {k: torch.zeros((repeats,) + shape,
-                                        dtype=cfg.act_dtype, device=device)
-                         for k in ("k", "v")}
-            for pi in range(len(pattern))}
+        group = {}
+        for pi, blk in enumerate(pattern):
+            shapes = ({"k": pool, "v": pool} if page_size > 0
+                      else _entry_shapes(cfg, blk, batch, max_len))
+            group[f"pos{pi}"] = {
+                leaf: torch.zeros((repeats,) + shape, dtype=cfg.act_dtype,
+                                  device=device)
+                for leaf, shape in shapes.items()}
+        cache[name] = group
     return cache

@@ -18,10 +18,16 @@ every op's output, bit for bit:
   themselves, and not only through their inputs.
 
 The op sequence mirrors ``transformer.prefill`` with a dense cache (the
-layer's K/V rows are the ``k_rope`` and ``v_proj`` outputs), and the
+layer's K/V rows are the ``k_rope`` and ``v_proj`` outputs; an MLA
+layer's latent rows the ``kv_norm`` and ``k_rope`` outputs), and the
 function checks that its logits equal ``transformer.prefill``'s.  A MoE
 layer's FFN is one op (``moe``): its expert capacity comes from the
-batch's token count (JAX's ``_capacity``), so it can depart alone.
+batch's token count (JAX's ``_capacity``), so it can depart alone.  An
+MLA layer (``models/mla.py``, the expanded prefill) is its products
+(``q_a``, ``q_b``, ``kv_a``, ``kv_b``, ``o_proj``), its norms, RoPE and
+concatenations, and the prefill kernel at (192, 128) with
+``pad_rows_mean_v`` (``attention``); the groups are named as in the
+params (``pre.0.``, ``body.0.``).
 
     diff = cobatch_diff(cfg, params, (toks_a, pad_a, row_a),
                         (toks_b, pad_b, row_b))
@@ -29,8 +35,9 @@ batch's token count (JAX's ``_capacity``), so it can depart alone.
 The same property at the kernel level: ``placed_rows`` puts one lane's
 q/k/v at a given pad of a batch row, a given width past it, beside lanes
 of other contents, and returns that lane's rows of one attention kernel
-(prefill or verify, dense or paged, chain or tree); they must be equal,
-bit for bit, for every placement (``pad_shift_departure``).
+(prefill or verify, dense or paged, chain or tree, or the MLA latent
+decode, ``mla_lane_inputs``); they must be equal, bit for bit, for every
+placement (``pad_shift_departure``).
 """
 from __future__ import annotations
 
@@ -41,13 +48,14 @@ import torch
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                 flash_attention_paged)
 from repro_torch.kernels.linear_rows.ops import linear_rows
+from repro_torch.kernels.mla_attn.ops import mla_attention
 from repro_torch.kernels.verify_attn.ops import (verify_attention,
                                                  verify_attention_paged)
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import (_proj, apply_rope, out_proj,
                                           pad_rows_mean_v)
-from repro_torch.models.config import FFN_GELU, FFN_MOE
+from repro_torch.models.config import FFN_GELU, FFN_MOE, MLA
 from repro_torch.models.layers import embed, lm_head, rmsnorm
 
 # (name, fn, input keys, output key); fn takes the inputs in that order
@@ -77,6 +85,64 @@ def _ffn_steps(cfg, blk, p, tag: str, linear) -> List[Step]:
         (tag + "ffn_down", lambda g: linear(g, f["w_down"]), ["g"], "a")]
 
 
+def _attn_steps(cfg, mix, tag: str, pad, positions, linear) -> List[Step]:
+    """An attention layer's mixer on "h" as steps, its output "a"."""
+    theta = cfg.rope_theta
+    return [
+        (tag + "q_proj", lambda h: _proj(h, mix["wq"], linear), ["h"], "q"),
+        (tag + "k_proj", lambda h: _proj(h, mix["wk"], linear), ["h"], "k"),
+        (tag + "v_proj", lambda h: _proj(h, mix["wv"], linear), ["h"], "v"),
+        (tag + "q_rope", lambda q: apply_rope(q, positions, theta), ["q"],
+         "q"),
+        (tag + "k_rope", lambda k: apply_rope(k, positions, theta), ["k"],
+         "k"),
+        (tag + "attention", lambda q, k, v: pad_rows_mean_v(
+            flash_attention(q, k, v, pad, causal=True, window=cfg.window,
+                            softcap=cfg.attn_logit_softcap), v, pad),
+         ["q", "k", "v"], "o"),
+        (tag + "o_proj", lambda o: out_proj(mix, o, linear), ["o"], "a"),
+    ]
+
+
+def _mla_steps(cfg, mix, tag: str, pad, positions, linear) -> List[Step]:
+    """An MLA layer's mixer on "h" as steps (``mla.mla_prefill``), its
+    output "a"."""
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+
+    def k_cat(kvb, kr):
+        b, s, h, _ = kvb.shape
+        return torch.cat([kvb[..., :dn], kr[:, :, None].expand(b, s, h, dr)],
+                         dim=-1)
+
+    return [
+        (tag + "q_a", lambda h: linear(h, mix["wq_a"]), ["h"], "qa"),
+        (tag + "q_norm", lambda qa: rmsnorm({"scale": mix["q_norm"]}, qa,
+                                            eps), ["qa"], "qa"),
+        (tag + "q_b", lambda qa: _proj(qa, mix["wq_b"], linear), ["qa"],
+         "q"),
+        (tag + "q_rope", lambda q: torch.cat(
+            [q[..., :dn], apply_rope(q[..., dn:], positions, theta)], -1),
+         ["q"], "q"),
+        (tag + "kv_a", lambda h: linear(h, mix["wkv_a"]), ["h"], "kva"),
+        (tag + "kv_norm", lambda kva: rmsnorm({"scale": mix["kv_norm"]},
+                                              kva[..., :r], eps),
+         ["kva"], "ckv"),
+        (tag + "k_rope", lambda kva: apply_rope(kva[..., None, r:],
+                                                positions, theta)[:, :, 0],
+         ["kva"], "kr"),
+        (tag + "kv_b", lambda ckv: _proj(ckv, mix["wkv_b"], linear),
+         ["ckv"], "kvb"),
+        (tag + "k_cat", k_cat, ["kvb", "kr"], "k"),
+        (tag + "v_split", lambda kvb: kvb[..., dn:].contiguous(), ["kvb"],
+         "v"),
+        (tag + "attention", lambda q, k, v: pad_rows_mean_v(
+            flash_attention(q, k, v, pad, causal=True), v, pad),
+         ["q", "k", "v"], "o"),
+        (tag + "o_proj", lambda o: out_proj(mix, o, linear), ["o"], "a"),
+    ]
+
+
 def prefill_steps(cfg, params, pad, positions,
                   linear=linear_rows) -> List[Step]:
     """The dense target prefill of ``transformer.prefill`` as steps over
@@ -85,7 +151,7 @@ def prefill_steps(cfg, params, pad, positions,
     ``linear``: the matrix product of the projections, the FFN, the
     router and the LM head (``transformer.prefill``'s is
     ``linear_rows``)."""
-    eps, theta = cfg.norm_eps, cfg.rope_theta
+    eps = cfg.norm_eps
     steps: List[Step] = [("embed", lambda t: embed(params["embed"], t,
                                                    cfg.act_dtype),
                           ["tokens"], "x")]
@@ -97,29 +163,13 @@ def prefill_steps(cfg, params, pad, positions,
                 p = per_pos[pi][i]
                 mix = p["mix"]
                 tag = f"{name}.{i * len(pattern) + pi}."
+                norm1 = (tag + "norm1",
+                         lambda x, p=p: rmsnorm(p["norm1"], x, eps),
+                         ["x"], "h")
+                mixer = _mla_steps if blk.mixer == MLA else _attn_steps
+                steps += [norm1] + mixer(cfg, mix, tag, pad, positions,
+                                         linear)
                 steps += [
-                    (tag + "norm1", lambda x, p=p: rmsnorm(p["norm1"], x, eps),
-                     ["x"], "h"),
-                    (tag + "q_proj", lambda h, m=mix: _proj(h, m["wq"],
-                                                            linear),
-                     ["h"], "q"),
-                    (tag + "k_proj", lambda h, m=mix: _proj(h, m["wk"],
-                                                            linear),
-                     ["h"], "k"),
-                    (tag + "v_proj", lambda h, m=mix: _proj(h, m["wv"],
-                                                            linear),
-                     ["h"], "v"),
-                    (tag + "q_rope", lambda q: apply_rope(q, positions, theta),
-                     ["q"], "q"),
-                    (tag + "k_rope", lambda k: apply_rope(k, positions, theta),
-                     ["k"], "k"),
-                    (tag + "attention", lambda q, k, v: pad_rows_mean_v(
-                        flash_attention(q, k, v, pad, causal=True,
-                                        window=cfg.window,
-                                        softcap=cfg.attn_logit_softcap),
-                        v, pad), ["q", "k", "v"], "o"),
-                    (tag + "o_proj", lambda o, m=mix: out_proj(m, o, linear),
-                     ["o"], "a"),
                     (tag + "residual1", lambda x, a: x + a, ["x", "a"], "x"),
                     (tag + "norm2", lambda x, p=p: rmsnorm(p["norm2"], x, eps),
                      ["x"], "h"),
@@ -214,7 +264,8 @@ def cobatch_diff(cfg, params, a, b, linear=linear_rows) -> Dict:
                                  == out_b["logits"].argmax()),
             "departing_alone": [n for n in names
                                 if not torch.equal(out_a[n], forced[n])],
-            "kv_rows_equal": all_equal(".k_rope") and all_equal(".v_proj"),
+            "kv_rows_equal": all(all_equal(k) for k in (
+                ".k_rope", ".v_proj", ".kv_norm")),
             "hidden_equal": all_equal(".residual2"),
             "logits_equal": same["logits"]}
 
@@ -237,6 +288,19 @@ def lane_inputs(length, hq, hk, d, dtype, device, seed):
     return (_randn((length, hq, d), dtype, device, seed),
             _randn((length, hk, d), dtype, device, seed + 1),
             _randn((length, hk, d), dtype, device, seed + 2))
+
+
+def mla_lane_inputs(length, heads, dtype, device, seed, r=512, dr=64):
+    """One lane's MLA decode inputs: q_lat (length, H, R), q_rope
+    (length, H, Dr), ckv (length, R), kr (length, Dr)."""
+    return (_randn((length, heads, r), dtype, device, seed),
+            _randn((length, heads, dr), dtype, device, seed + 1),
+            _randn((length, r), dtype, device, seed + 2),
+            _randn((length, dr), dtype, device, seed + 3))
+
+
+# the MLA decode's scale at DeepSeek-V3's widths, 1/sqrt(128 + 64)
+MLA_SHIFT_SCALE = 192 ** -0.5
 
 
 def _placed(x, p, width, seed):
@@ -266,12 +330,15 @@ def _pooled(k, v, seed):
 def placed_rows(kind, lane, p, extra, seed):
     """Lane 1's rows of one kernel call with the lane's prompt at pad
     ``p`` and the batch ``extra`` positions wider than pad + prompt.
-    ``lane``: ``lane_inputs(L, ...)``.  Prefill kinds: the prompt's L
+    ``lane``: ``lane_inputs(L, ...)`` (``mla_lane_inputs`` for the MLA
+    kinds "mla1", "mla4", "mla128", decode kinds as the verify's).  Prefill kinds: the prompt's L
     rows.  Decode kinds (verify T = 4 or 1, "verify128" a chunked
     refill's continuation, tree W 4 gamma 3 with T = 13; L >= T): the
     cache holds the L keys at [p, p + L), the last T of them
     the block's, and the lane's rows are the T query rows.  The other
     lanes' contents, pads and lengths change with ``seed``."""
+    if kind.startswith("mla"):
+        return _placed_mla(kind, lane, p, extra, seed)
     q, k, v = lane
     length = k.shape[0]
     if kind.startswith("prefill"):
@@ -298,6 +365,19 @@ def placed_rows(kind, lane, p, extra, seed):
         kp, vp, tbl = _pooled(kb, vb, seed)
         return verify_attention_paged(qb, kp, vp, tbl, lengths, pad, **kw)[1]
     return verify_attention(qb, kb, vb, lengths, pad, **kw)[1]
+
+
+def _placed_mla(kind, lane, p, extra, seed):
+    ql, qr, ckv, kr = lane
+    t, length = int(kind[3:]), ckv.shape[0]
+    smax = -(-(p + length + extra) // SHIFT_PAGE) * SHIFT_PAGE
+    cb, kb = _placed(ckv, p, smax, seed + 1), _placed(kr, p, smax, seed + 2)
+    qlb, qrb = _placed(ql[:t], 0, t, seed), _placed(qr[:t], 0, t, seed + 3)
+    lengths = torch.tensor([smax // 2, p + length - t, smax - t],
+                           dtype=torch.int32, device=ql.device)
+    pad = torch.tensor([seed % 7, p, 3], dtype=torch.int32, device=ql.device)
+    return mla_attention(qlb, qrb, cb, kb, lengths, pad,
+                         scale=MLA_SHIFT_SCALE)[1]
 
 
 def pad_shift_departure(kind, lane, extras=SHIFT_EXTRA):

@@ -67,7 +67,11 @@ def test_port_file_list_is_complete():
                  "src/repro_torch/configs/starcoder2_7b.py",
                  "src/repro_torch/configs/starcoder2_15b.py",
                  "src/repro_torch/configs/granite_moe_3b_a800m.py",
-                 "src/repro_torch/configs/gpt_oss_120b.py"):
+                 "src/repro_torch/configs/gpt_oss_120b.py",
+                 "src/repro_torch/configs/deepseek_v3_671b.py",
+                 "src/repro_torch/models/mla.py",
+                 "src/repro_torch/kernels/mla_attn/ops.py",
+                 "src/repro_torch/kernels/mla_attn/ref.py"):
         assert want in names
 
 

@@ -1543,3 +1543,153 @@ def test_cuda_moe_combine_repeatable(cuda, arch):
     np.testing.assert_allclose(_f32(a.cpu()), _f32(ref.cpu()),
                                **_tol("bfloat16"))
     assert _rel_l2(a, ref) < 2e-2
+
+
+# ------------------- MLA: the latent-space decode and the (192, 128) prefill
+MLA_SCALE = 192 ** -0.5
+
+
+def _mla_case(b, t, h, smax, dev, seed, dtype="bfloat16"):
+    """q_lat, q_rope, ckv, kr of an MLA decode at DeepSeek-V3's latent
+    widths (R 512, Dr 64); lanes of mixed lengths (room for T rows) and
+    pads up to each length."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, smax - t + 1, size=b)
+    pad = np.minimum(rng.integers(0, 401, size=b), lengths)
+    return (_randn((b, t, h, 512), dtype, dev, seed),
+            _randn((b, t, h, 64), dtype, dev, seed + 1),
+            _randn((b, smax, 512), dtype, dev, seed + 2),
+            _randn((b, smax, 64), dtype, dev, seed + 3),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(pad, dtype=torch.int32, device=dev))
+
+
+def test_mla_wrapper_takes_plain_version_on_cpu():
+    """On CPU tensors ``mla_attention`` is its plain version (no launch,
+    any dims and dtype), which is the expanded attention over [ckv ‖ kr]
+    at MLA's scale; the prefill wrapper takes a value width apart from
+    the query's there too."""
+    from repro_torch.kernels.mla_attn.ops import mla_attention
+    from repro_torch.kernels.mla_attn.ref import mla_attention_ref
+    from repro_torch.models.attention import attend
+    q_lat, q_rope, ckv, kr, ln, pad = _mla_case(2, 3, 4, 40, "cpu", 5,
+                                                "float32")
+    q_lat, q_rope = q_lat[..., :48], q_rope[..., :16]
+    ckv, kr = ckv[..., :48].contiguous(), kr[..., :16].contiguous()
+    n0 = mla_attention.launches
+    got = mla_attention(q_lat, q_rope, ckv, kr, ln, pad, scale=0.2)
+    assert mla_attention.launches == n0
+    assert torch.equal(got, mla_attention_ref(q_lat, q_rope, ckv, kr, ln,
+                                              pad, scale=0.2))
+    # the same attention in expanded form: q = [q_lat ‖ q_rope] pre-scaled
+    # so that attend's 1/sqrt(64) gives 0.2, keys [ckv ‖ kr], values ckv
+    q = torch.cat([q_lat, q_rope], -1) * (0.2 * 64 ** 0.5)
+    k = torch.cat([ckv, kr], -1)[:, :, None]
+    from repro_torch.kernels.verify_attn.ref import verify_mask
+    mask = verify_mask(ln, 3, 40, pad)
+    want = attend(q, k, ckv[:, :, None], mask[:, None, None])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    q, k, v = (torch.randn(s) for s in ((2, 9, 4, 48), (2, 9, 4, 48),
+                                        (2, 9, 4, 32)))
+    assert flash_attention(q, k, v).shape == (2, 9, 4, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [16, 128])
+@pytest.mark.parametrize("t", [1, 4, 128])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_cuda_mla_vs_plain(cuda, b, t, h):
+    """``mla_attention`` against its plain version at DeepSeek-V3's latent
+    widths: per element at the bf16 tolerance and at relative L2 below
+    1e-3 (printed); rows that see no key are zeros; two calls equal."""
+    from repro_torch.kernels.mla_attn.ops import mla_attention
+    from repro_torch.kernels.mla_attn.ref import mla_attention_ref
+    args = _mla_case(b, t, h, 1024, cuda, 10 * b + t + h)
+    n0 = mla_attention.launches
+    got = mla_attention(*args, scale=MLA_SCALE)
+    again = mla_attention(*args, scale=MLA_SCALE)
+    want = mla_attention_ref(*args, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert mla_attention.launches == n0 + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol("bfloat16"))
+    rel = _rel_l2(got, want)
+    print(f"mla B {b} T {t} H {h}: relative L2 {rel:.3e}")
+    assert rel < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mla1", "mla4", "mla128"])
+def test_cuda_mla_pad_shift_bitwise(cuda, kind):
+    """A lane's latent decode rows do not move with its pad, its row's
+    width or the other lanes (``obs.cobatch.placed_rows``), bit for
+    bit, at 128 heads."""
+    from repro_torch.obs.cobatch import mla_lane_inputs
+    lane = mla_lane_inputs(150, 128, torch.bfloat16, cuda, 81)
+    moved = pad_shift_departure(kind, lane)
+    torch.cuda.synchronize()
+    assert moved is None, f"{kind}: rows at (pad, width +) {moved} moved"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float32", "dims", "misaligned",
+                                  "noncontiguous"])
+def test_cuda_mla_refuses(cuda, kind):
+    """No fallback: float32, latent widths other than (512, 64), a
+    pointer off the 16-byte grid and a strided view raise before any
+    launch."""
+    from repro_torch.kernels.mla_attn.ops import mla_attention
+    q_lat, q_rope, ckv, kr, ln, pad = _mla_case(2, 4, 16, 64, cuda, 3)
+    if kind == "float32":
+        q_lat, q_rope, ckv, kr = (x.float() for x in (q_lat, q_rope, ckv, kr))
+    elif kind == "dims":
+        q_lat, ckv = q_lat[..., :256].contiguous(), ckv[..., :256].contiguous()
+    elif kind == "misaligned":
+        buf = torch.empty(ckv.numel() + 1, dtype=ckv.dtype, device=cuda)
+        ckv = buf[1:].view(ckv.shape).copy_(ckv)
+    else:
+        q_lat = torch.cat([q_lat, q_lat], -1)[..., ::2]
+    n0 = mla_attention.launches
+    with pytest.raises(ValueError):
+        mla_attention(q_lat, q_rope, ckv, kr, ln, pad, scale=MLA_SCALE)
+    assert mla_attention.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 512])
+def test_cuda_flash_split_dims_tile_edges(cuda, s):
+    """The prefill at MLA's (192, 128): q/k 192 wide, v 128, 128 heads,
+    against its plain version at the tile edges (per element at the bf16
+    tolerance, relative L2 below 1e-3), rows before a pad zeros, counted
+    at (192, 128)."""
+    b, h = 2, 128
+    q = _randn((b, s, h, 192), "bfloat16", cuda, 91)
+    k = _randn((b, s, h, 192), "bfloat16", cuda, 92)
+    v = _randn((b, s, h, 128), "bfloat16", cuda, 93)
+    pad = torch.tensor([0, s // 3], dtype=torch.int32, device=cuda)
+    n0 = flash_attention.launches_at_dims[(192, 128)]
+    got = flash_attention(q, k, v, pad)
+    want = flash_attention_ref(q, k, v, pad)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_at_dims[(192, 128)] == n0 + 1
+    assert got.shape == (b, s, h, 128) and torch.isfinite(got).all()
+    np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                               **_tol("bfloat16"))
+    if want.abs().sum() > 0:
+        assert _rel_l2(got, want) < 1e-3
+    assert not got[1, :s // 3].any(), "rows before pad"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["float32", "dims"])
+def test_cuda_flash_split_dims_refused(cuda, kind):
+    """A value width apart from the query's runs only at (192, 128) in
+    bf16: float32 there, or another pair, raises."""
+    dt = "float32" if kind == "float32" else "bfloat16"
+    dv = 128 if kind == "float32" else 64
+    q = _randn((1, 8, 4, 192), dt, cuda, 1)
+    v = _randn((1, 8, 4, dv), dt, cuda, 2)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.clone(), v)
